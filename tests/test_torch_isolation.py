@@ -1,0 +1,45 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and never mentions either in an import statement."""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "arcadia_microscopy_tools_tpu_torch"
+
+_BLOCKER = """
+import sys
+for name in ("jax", "jaxlib", "arcadia_microscopy_tools_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import arcadia_microscopy_tools_tpu_torch
+import arcadia_microscopy_tools_tpu_torch.ops.cc_cuda
+import arcadia_microscopy_tools_tpu_torch._build
+import arcadia_microscopy_tools_tpu_torch.testing
+leaked = [
+    m for m, mod in sys.modules.items()
+    if mod is not None and m.startswith(("jax", "arcadia_microscopy_tools_tpu."))
+]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_import_mentions_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|arcadia_microscopy_tools_tpu)\b(?!_torch)", re.M
+    )
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert not offenders
