@@ -1,20 +1,29 @@
 """arcadia_microscopy_tools_tpu_torch: the PyTorch / CUDA port of
 arcadia_microscopy_tools_tpu.
 
-This package runs the classical plate path - DoG, percentile rescale and a
-histogram threshold, two-phase connected components, foreground compaction,
-per-cell measurement - in PyTorch, with the connected-components tile
-sweeps as hand-written CUDA kernels for Hopper (`csrc/cc_local.cu`). Entry
-points run on the CUDA card unless the caller passes `device="cpu"`; on CPU
-tensors the kernels' plain PyTorch versions run instead.
+This package runs two paths in PyTorch:
 
-The layout mirrors the JAX package (`core/`, `ops/`, `parallel/`). The
-package imports neither JAX nor the JAX package.
+- the classical plate path - DoG, percentile rescale and a histogram
+  threshold, two-phase connected components, foreground compaction,
+  per-cell measurement - with the connected-components tile sweeps as
+  hand-written CUDA kernels for Hopper (`csrc/cc_local.cu`);
+- the deep segmentation path, `SegmentationModel.segment` /
+  `batch_segment` - U-Net forward, flow tracking and flow-error QC - with the
+  fused 3x3 conv (`csrc/conv3x3_fused.cu`), GroupNorm moments
+  (`csrc/gn_moments.cu`) and QC diffusion (`csrc/diffuse.cu`) as CUDA
+  kernels, and the CC kernels again in the sink labeling.
+
+Entry points run on the CUDA card unless the caller passes `device="cpu"`;
+on CPU tensors the kernels' plain PyTorch versions run instead.
+
+The layout mirrors the JAX package (`core/`, `ops/`, `models/`,
+`parallel/`). The package imports neither JAX nor the JAX package.
 """
 
 from .core.channels import Channel
 from .core.microplate import MicroplateLayout
 from .exceptions import MetadataWarning, SegmentationWarning
+from .models.segmentation import SegmentationModel
 from .ops.fused import fused_classical_mask
 from .ops.labeling import component_roots, label
 from .ops.regionprops import measure_compacted
@@ -29,6 +38,7 @@ __all__ = [
     "PlateResults",
     "PlateRunConfig",
     "PlateRunner",
+    "SegmentationModel",
     "SegmentationWarning",
     "component_roots",
     "fused_classical_mask",

@@ -21,7 +21,14 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["load_kernel_library", "BuiltLibrary", "NVCC_FLAGS"]
+__all__ = [
+    "BuiltLibrary",
+    "NVCC_FLAGS",
+    "check_launch",
+    "cuda_stream",
+    "load_kernel_libraries",
+    "load_kernel_library",
+]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -62,40 +69,84 @@ def _nvcc() -> str:
     )
 
 
-def _build(name: str) -> BuiltLibrary:
+def _paths(name: str) -> tuple[Path, Path, Path]:
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"{name}-{digest}.so", BUILD_DIR / f"{name}-{digest}.ptxas.txt"
+
+
+def _build(names: list[str]) -> None:
+    """Load every library of `names`, first compiling the missing ones with
+    one nvcc process each, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{name}-{digest}.so"
-    log = BUILD_DIR / f"{name}-{digest}.ptxas.txt"
-    seconds = 0.0
-    if not so.exists():
-        t0 = time.perf_counter()
-        # build under a temporary name and rename into place, so concurrent
-        # processes never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            src, so, log = _paths(name)
+            if so.exists():
+                continue
+            # build under a temporary name and rename into place, so concurrent
+            # processes never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True,
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
                 text=True,
             )
+            jobs.append((name, src, so, log, tmp, proc))
+        failed = []
+        for name, src, so, log, tmp, proc in jobs:
+            out, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
+                failed.append(f"nvcc failed for {src}:\n{out}")
+                continue
+            log.write_text(out)
             os.replace(tmp, so)
-        finally:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for *_, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        seconds = time.perf_counter() - t0
-    ptxas = log.read_text() if log.exists() else ""
-    return BuiltLibrary(ctypes.CDLL(str(so)), so, seconds, ptxas)
+    seconds = time.perf_counter() - t0
+    built = {job[0] for job in jobs}
+    for name in names:
+        _, so, log = _paths(name)
+        ptxas = log.read_text() if log.exists() else ""
+        _loaded[name] = BuiltLibrary(
+            ctypes.CDLL(str(so)), so, seconds if name in built else 0.0, ptxas
+        )
+
+
+def load_kernel_libraries(names: list[str]) -> dict[str, BuiltLibrary]:
+    """Build (if needed, in parallel) and load `csrc/<name>.cu` for each name;
+    cached per process."""
+    with _lock:
+        missing = [n for n in names if n not in _loaded]
+        if missing:
+            _build(missing)
+        return {n: _loaded[n] for n in names}
 
 
 def load_kernel_library(name: str) -> BuiltLibrary:
     """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
-    with _lock:
-        if name not in _loaded:
-            _loaded[name] = _build(name)
-        return _loaded[name]
+    return load_kernel_libraries([name])[name]
+
+
+def cuda_stream(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on the device of tensor `t`, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel library's launch function returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with cudaError {err}")

@@ -1,0 +1,311 @@
+"""High-throughput segmentation model wrapper.
+
+Counterpart of `arcadia_microscopy_tools_tpu/models/segmentation.py`, the
+API twin of the reference's Cellpose `SegmentationModel`: the same defaults
+(diameter 30, flow_threshold 0.4, cellprob_threshold 0, niter None, batch
+size 8), the same validation ranges, the same host preparation (1-99
+percentile stretch, zoom to the canonical diameter, edge pad to a multiple
+of 16), and `batch_segment`'s per-image failure isolation
+(SegmentationWarning and a None placeholder, indices preserved).
+
+Underneath, a device batch runs the PyTorch U-Net (models/unet.py) and the
+batched mask reconstruction (models/flows.py). The model runs on the CUDA
+card unless constructed with `device="cpu"`, which runs the kernels' plain
+PyTorch versions; without a card and without that choice it raises.
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+from collections.abc import Sequence
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, TypedDict
+
+import numpy as np
+import torch
+
+from ..exceptions import SegmentationWarning
+from ..parallel.plate import resolve_device
+from ..typing import Float64Array, Int64Array
+from ..utils import get_tqdm
+from .flows import compute_masks
+from .unet import UNet, UNetConfig
+from .weights import load_weights
+
+__all__ = ["SegmentationModel", "SegmentationParams", "find_best_available_device"]
+
+logger = logging.getLogger(__name__)
+
+_DOWNSAMPLE_MULTIPLE = 16  # pad H, W to this multiple for the U-Net
+
+
+class SegmentationParams(TypedDict):
+    """Resolved parameters for a segmentation run."""
+
+    diameter: float
+    flow_threshold: float
+    cellprob_threshold: float
+    niter: int | None
+    batch_size: int
+
+
+def find_best_available_device() -> torch.device:
+    """The CUDA card; raises when there is none (no silent CPU fallback:
+    pass device="cpu" to run on the CPU)."""
+    return resolve_device(None)
+
+
+@dataclass
+class SegmentationModel:
+    """U-Net segmentation wrapper for high-throughput cell segmentation.
+
+    Attributes:
+        default_cell_diameter_px: default expected cell diameter in pixels (30).
+        default_flow_threshold: default flow-error threshold; higher keeps
+            more masks. Must be >= 0. Default 0.4.
+        default_cellprob_threshold: default cell-probability threshold,
+            between -10 and 10. Default 0.
+        default_num_iterations: default flow-integration steps; None uses
+            200 (the canonical count at the canonical diameter).
+        default_batch_size: images per device batch. Default 8.
+        device: torch device; None means the CUDA card (raises without one).
+        checkpoint_path: `.npz` of the JAX parameter tree (models/weights.py);
+            otherwise seeded weights (identical pipeline, untrained network).
+        seed: seed of the torch generator for seeded weights.
+    """
+
+    default_cell_diameter_px: float = 30
+    default_flow_threshold: float = 0.4
+    default_cellprob_threshold: float = 0
+    default_num_iterations: int | None = None
+    default_batch_size: int = 8
+    device: str | torch.device | None = None
+    checkpoint_path: Path | str | None = None
+    seed: int = 0
+    max_cells: int = 4096
+    min_size: int = 15
+    _network: UNet | None = field(default=None, init=False, repr=False)
+    _config: UNetConfig = field(default_factory=UNetConfig, init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
+
+    def _resolve_and_validate_parameters(
+        self,
+        cell_diameter_px: float | None,
+        flow_threshold: float | None,
+        cellprob_threshold: float | None,
+        num_iterations: int | None,
+        batch_size: int | None,
+    ) -> SegmentationParams:
+        """Resolve parameters from the given values or the defaults, then
+        validate them (same ranges as the reference)."""
+        params: SegmentationParams = {
+            "diameter": cell_diameter_px
+            if cell_diameter_px is not None
+            else self.default_cell_diameter_px,
+            "flow_threshold": flow_threshold
+            if flow_threshold is not None
+            else self.default_flow_threshold,
+            "cellprob_threshold": cellprob_threshold
+            if cellprob_threshold is not None
+            else self.default_cellprob_threshold,
+            "niter": num_iterations if num_iterations is not None else self.default_num_iterations,
+            "batch_size": batch_size if batch_size is not None else self.default_batch_size,
+        }
+        if params["diameter"] <= 0:
+            raise ValueError(f"Cell diameter [px] must be positive, got {params['diameter']}")
+        if params["flow_threshold"] < 0:
+            raise ValueError(
+                f"Flow threshold must be non-negative, got {params['flow_threshold']}"
+            )
+        if not (-10 <= params["cellprob_threshold"] <= 10):
+            raise ValueError(
+                "Cell probability threshold must be between -10 and 10, got "
+                f"{params['cellprob_threshold']}"
+            )
+        return params
+
+    @property
+    def network(self) -> UNet:
+        """The U-Net on the model's device, built once (checkpoint or seeded)."""
+        if self._network is None:
+            if self.checkpoint_path is not None:
+                logger.info(f"Loading U-Net weights from {self.checkpoint_path} on {self.device}")
+                # a private generator: the init is overwritten and must not
+                # draw from the process's global random state
+                net = UNet(self._config, generator=torch.Generator())
+                net.load_state_dict(load_weights(self.checkpoint_path))
+            else:
+                logger.info(f"Initializing seeded U-Net weights on {self.device}")
+                net = UNet(self._config, generator=torch.Generator().manual_seed(self.seed))
+            self._network = net.to(self.device).eval()
+        return self._network
+
+    # canonical cell diameter the net is trained at
+    _CANONICAL_DIAMETER = 30.0
+
+    @staticmethod
+    def _prepare_image(
+        intensities: np.ndarray, scale: float = 1.0
+    ) -> tuple[np.ndarray, tuple[int, int], tuple[int, int]]:
+        """Normalise to [0, 1] by the 1-99 percentile stretch, arrange as
+        (H, W, 3), rescale so the expected diameter hits the canonical
+        training scale, and edge-pad to the U-Net multiple.
+
+        Returns (float32 (Hp, Wp, 3) image, original (h, w), scaled (hs, ws))."""
+        x = np.asarray(intensities, dtype=np.float32)
+        if x.ndim == 2:
+            x = x[None]
+        if x.ndim != 3:
+            raise ValueError(f"Expected ([C], H, W) input, got shape {x.shape}")
+        c, h, w = x.shape
+        if c > 3:
+            x = x[:3]
+        elif c < 3:
+            x = np.concatenate([x] + [x[-1:]] * (3 - c), axis=0)
+
+        p1 = np.percentile(x, 1, axis=(1, 2), keepdims=True)
+        p99 = np.percentile(x, 99, axis=(1, 2), keepdims=True)
+        denom = np.maximum(p99 - p1, 1e-6)
+        x = np.clip((x - p1) / denom, 0.0, 1.0)
+
+        if abs(scale - 1.0) > 1e-3:
+            from scipy.ndimage import zoom
+
+            x = zoom(x, (1.0, scale, scale), order=1)
+        hs, ws = x.shape[1], x.shape[2]
+
+        pad_h = (-hs) % _DOWNSAMPLE_MULTIPLE
+        pad_w = (-ws) % _DOWNSAMPLE_MULTIPLE
+        x = np.pad(x, ((0, 0), (0, pad_h), (0, pad_w)), mode="edge")
+        return np.ascontiguousarray(np.moveaxis(x, 0, -1), dtype=np.float32), (h, w), (hs, ws)
+
+    @staticmethod
+    def _upscale_labels(labels: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
+        """Nearest-neighbour resize of a label image back to the original grid."""
+        hs, ws = labels.shape
+        h, w = shape
+        if (hs, ws) == (h, w):
+            return labels
+        yi = np.minimum(((np.arange(h) + 0.5) * hs / h).astype(int), hs - 1)
+        xi = np.minimum(((np.arange(w) + 0.5) * ws / w).astype(int), ws - 1)
+        return labels[yi[:, None], xi[None, :]]
+
+    def _rescale_factor(self, params: SegmentationParams) -> float:
+        return self._CANONICAL_DIAMETER / float(params["diameter"])
+
+    def _resolve_niter(self, params: SegmentationParams) -> int:
+        if params["niter"] is not None:
+            return int(params["niter"])
+        return 200
+
+    def _labels_of(self, images: list[np.ndarray], params: SegmentationParams) -> np.ndarray:
+        """One device batch: (N, Hp, Wp, 3) prepared images -> (N, Hp, Wp)
+        int32 labels on the host."""
+        x = torch.from_numpy(np.stack(images)).to(self.device)
+        with torch.inference_mode():
+            out = self.network(x)
+            labels = compute_masks(
+                out,
+                cellprob_threshold=float(params["cellprob_threshold"]),
+                flow_threshold=float(params["flow_threshold"]),
+                niter=self._resolve_niter(params),
+                max_cells=self.max_cells,
+                min_size=self.min_size,
+            )
+        return labels.cpu().numpy()
+
+    def segment(
+        self,
+        intensities: Float64Array,
+        cell_diameter_px: float | None = None,
+        flow_threshold: float | None = None,
+        cellprob_threshold: float | None = None,
+        num_iterations: int | None = None,
+        batch_size: int | None = None,
+        **extra_kwargs: Any,
+    ) -> Int64Array:
+        """Segment one ([C], H, W) image; returns int64 labels (background 0).
+
+        Raises ValueError for out-of-range parameters and RuntimeError when
+        the segmentation itself fails."""
+        resolved = self._resolve_and_validate_parameters(
+            cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
+        )
+        try:
+            image, (h, w), (hs, ws) = self._prepare_image(
+                np.asarray(intensities), self._rescale_factor(resolved)
+            )
+            labels = self._labels_of([image], resolved)[0]
+            return self._upscale_labels(labels[:hs, :ws], (h, w)).astype(np.int64)
+        except ValueError:
+            raise
+        except Exception as e:  # noqa: BLE001 - mirrors the reference's error wrapping
+            raise RuntimeError(f"Segmentation failed: {e}") from e
+
+    def batch_segment(
+        self,
+        intensities_batch: Sequence[Float64Array],
+        cell_diameter_px: float | None = None,
+        flow_threshold: float | None = None,
+        cellprob_threshold: float | None = None,
+        num_iterations: int | None = None,
+        batch_size: int | None = None,
+        show_progress: bool = True,
+        **extra_kwargs: Any,
+    ) -> list[Int64Array | None]:
+        """Segment many images with one set of parameters.
+
+        Images are prepared on the host, grouped by padded shape and run in
+        device batches of `batch_size`. A failed batch is retried image by
+        image; each image that fails emits a SegmentationWarning and leaves
+        None at its index.
+        """
+        resolved = self._resolve_and_validate_parameters(
+            cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
+        )
+        bs = max(1, int(resolved["batch_size"]))
+        masks: list[Int64Array | None] = [None] * len(intensities_batch)
+        progress = get_tqdm()(total=len(intensities_batch), desc="Segmenting") if show_progress else None
+
+        def fail(i: int, e: Exception) -> None:
+            warnings.warn(f"Segmentation failed on image {i}: {e}", SegmentationWarning, stacklevel=3)
+
+        scale = self._rescale_factor(resolved)
+        prepared: dict[tuple[int, int], list] = {}
+        for i, intensities in enumerate(intensities_batch):
+            try:
+                image, hw, hws = self._prepare_image(np.asarray(intensities), scale)
+                prepared.setdefault(image.shape[:2], []).append((i, image, hw, hws))
+            except Exception as e:  # noqa: BLE001
+                fail(i, e)
+                if progress is not None:
+                    progress.update(1)
+
+        def store(i: int, labels: np.ndarray, hw, hws) -> None:
+            hs, ws = hws
+            masks[i] = self._upscale_labels(labels[:hs, :ws], hw).astype(np.int64)
+
+        for group in prepared.values():
+            for start in range(0, len(group), bs):
+                chunk = group[start : start + bs]
+                try:
+                    labels = self._labels_of([img for _, img, _, _ in chunk], resolved)
+                    for k, (i, _, hw, hws) in enumerate(chunk):
+                        store(i, labels[k], hw, hws)
+                except Exception as e:  # noqa: BLE001
+                    logger.debug(f"Batched dispatch failed ({e}); isolating per image")
+                    for i, img, hw, hws in chunk:
+                        try:
+                            store(i, self._labels_of([img], resolved)[0], hw, hws)
+                        except Exception as e1:  # noqa: BLE001
+                            fail(i, e1)
+                if progress is not None:
+                    progress.update(len(chunk))
+
+        if progress is not None:
+            progress.close()
+        return masks

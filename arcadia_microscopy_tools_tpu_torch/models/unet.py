@@ -1,0 +1,215 @@
+"""Cellpose-style U-Net in PyTorch, forward built from the fused kernels.
+
+Counterpart of `arcadia_microscopy_tools_tpu/models/unet.py`: a residual
+double-conv U-Net with GroupNorm, a global style vector injected into the
+decoder, and three output maps (Y-flow, X-flow, cell-probability logits).
+Tensors are NHWC (B, H, W, C), as in the JAX package.
+
+The forward has the plain geometry of `apply_unet` (no space-to-depth
+rewrite; that trick fills the TPU's 128 lanes and has no use here) built
+from the fused blocks of the JAX package's `unet_s2d.py`:
+
+- every stride-1 3x3 conv with an activation input runs through
+  `conv3x3_fused` (the CUDA kernel on the card): conv1 emits the moments of
+  GN1, GN1 + ReLU ride conv2's prologue, conv2 emits the moments of GN2;
+- the block tail applies GN2's affine, adds the residual and takes the
+  ReLU in one elementwise pass, with the rounding points of `_fused_tail`;
+- in the decoder, conv(concat(up, skip)) is split into conv(up, W_up)
+  followed by conv(skip, W_skip, accum=...), so the concatenation is never
+  built; the 1x1 projection is split the same way, its up part taken before
+  the nearest upsample (the two commute exactly);
+- the one 3x3 conv with a 3-channel input (down0.conv1) is a float32
+  `F.conv2d` rounded to the compute dtype, and its GN moments come from the
+  `lane_moments` kernel;
+- 1x1 projections, the head, max-pool, upsample and the style MLP are
+  ordinary PyTorch.
+
+GroupNorm is one-pass (E[x^2] - mean^2, clamped at 0) in every dtype; the
+JAX package's float32 path is two-pass, so the float32 forward agrees with
+`apply_unet` to the tolerance stated in the tests, not bit for bit. The
+bfloat16 forward is the one the CUDA kernels run; float32 runs on the CPU
+only.
+
+Parameters keep the names of `init_unet`. Layouts: 3x3 convs (3, 3, Co, C),
+the layout the conv kernel stages; 1x1 convs and dense layers (C, Co).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .conv_cuda import conv2d_f32, conv3x3_fused, gn_affine_params
+from .gn_cuda import lane_moments
+
+__all__ = ["UNet", "UNetConfig"]
+
+
+class UNetConfig:
+    """Static architecture configuration (same fields as the JAX package's).
+
+    Attributes:
+        in_channels: input image channels (3).
+        base_channels: channel widths per resolution level.
+        out_channels: output maps (dY, dX, cellprob).
+        groups: GroupNorm group count.
+        compute_dtype: activation dtype (bfloat16; float32 on the CPU).
+    """
+
+    def __init__(
+        self,
+        in_channels: int = 3,
+        base_channels: tuple[int, ...] = (32, 64, 128, 256),
+        out_channels: int = 3,
+        groups: int = 8,
+        compute_dtype: torch.dtype = torch.bfloat16,
+    ):
+        self.in_channels = in_channels
+        self.base_channels = tuple(base_channels)
+        self.out_channels = out_channels
+        self.groups = groups
+        self.compute_dtype = compute_dtype
+
+    def __repr__(self) -> str:
+        return (
+            f"UNetConfig(in={self.in_channels}, base={self.base_channels}, "
+            f"out={self.out_channels})"
+        )
+
+
+class _ConvBlock(nn.Module):
+    """Parameters of one residual double-conv block."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv1 = nn.Parameter(torch.empty(3, 3, cout, cin))
+        self.conv2 = nn.Parameter(torch.empty(3, 3, cout, cout))
+        self.gn1_scale = nn.Parameter(torch.ones(cout))
+        self.gn1_bias = nn.Parameter(torch.zeros(cout))
+        self.gn2_scale = nn.Parameter(torch.ones(cout))
+        self.gn2_bias = nn.Parameter(torch.zeros(cout))
+        self.proj = nn.Parameter(torch.empty(cin, cout)) if cin != cout else None
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def _max_pool2(x: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    return x[:, : 2 * h2, : 2 * w2].reshape(b, h2, 2, w2, 2, c).amax((2, 4))
+
+
+class UNet(nn.Module):
+    """The segmentation U-Net. `forward` maps (B, H, W, in_channels) float
+    input, H and W multiples of 2**(levels - 1), to (B, H, W, 3) float32.
+
+    Seeded initialisation draws from an explicit `torch.Generator` with the
+    JAX package's distributions (He-normal convs and dense layers, unit GN
+    scales, zero biases); it does not reproduce the numbers `init_unet`
+    draws from a JAX key. Trained or JAX-initialised weights come in through
+    `models.weights`.
+    """
+
+    def __init__(self, config: UNetConfig | None = None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.config = config or UNetConfig()
+        nb = self.config.base_channels
+        cins = (self.config.in_channels, *nb[:-1])
+        self.down = nn.ModuleList(_ConvBlock(cin, cout) for cin, cout in zip(cins, nb))
+        self.style_dense = nn.Parameter(torch.empty(nb[-1], nb[-1]))
+        levels = list(reversed(range(len(nb) - 1)))
+        self.up = nn.ModuleList(_ConvBlock(nb[lv + 1] + nb[lv], nb[lv]) for lv in levels)
+        self.style_proj = nn.ParameterList(
+            nn.Parameter(torch.empty(nb[-1], nb[lv])) for lv in levels
+        )
+        self.head = nn.Parameter(torch.empty(nb[0], self.config.out_channels))
+        self.head_bias = nn.Parameter(torch.zeros(self.config.out_channels))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        def he(p: nn.Parameter, fan_in: int) -> None:
+            p.copy_(torch.randn(p.shape, generator=generator) * math.sqrt(2.0 / fan_in))
+
+        for blk in [*self.down, *self.up]:
+            cin = blk.conv1.shape[3]
+            he(blk.conv1, 9 * cin)
+            he(blk.conv2, 9 * blk.conv2.shape[3])
+            if blk.proj is not None:
+                he(blk.proj, cin)
+        he(self.style_dense, self.style_dense.shape[0])
+        for p in self.style_proj:
+            he(p, p.shape[0])
+        he(self.head, self.head.shape[0])
+
+    def _tail(self, blk: _ConvBlock, y1, m1, skip):
+        """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
+        then GN2 affine + residual + ReLU (rounding points of the JAX
+        package's `_fused_tail`)."""
+        dt, groups = self.config.compute_dtype, self.config.groups
+        _, h, w, c = y1.shape
+        n = h * w * (c // min(groups, c))
+        sc1, bi1 = gn_affine_params(m1[0], m1[1], blk.gn1_scale, blk.gn1_bias, groups, n)
+        y2, m2 = conv3x3_fused(
+            y1, blk.conv2.to(dt), prologue=(sc1, bi1), relu=True, emit_moments=True
+        )
+        sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
+        f = y2.float()
+        del y2
+        # in place: at 2048^2 x 8 x 32 channels each float32 temporary is 4.3 GB
+        f.mul_(sc2[:, None, None, :]).add_(bi2[:, None, None, :])
+        out = f.to(dt)
+        del f
+        out += skip.to(dt)
+        return out.relu_()
+
+    @torch.no_grad()  # inference only: the kernels have no backward
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.config.compute_dtype
+        if x.device.type != "cpu" and dt != torch.bfloat16:
+            raise NotImplementedError("the forward on the card runs in bfloat16 only")
+
+        def w(t: torch.Tensor) -> torch.Tensor:
+            return t.to(dt).contiguous()
+
+        # encoder
+        skips = []
+        h = x.to(dt)
+        for i, blk in enumerate(self.down):
+            if i == 0:
+                y1 = conv2d_f32(h, w(blk.conv1)).to(dt)
+                m1 = lane_moments(y1)
+            else:
+                y1, m1 = conv3x3_fused(h, w(blk.conv1), emit_moments=True)
+            skip = h if blk.proj is None else h @ w(blk.proj)
+            h = self._tail(blk, y1, m1, skip)
+            del y1, skip
+            skips.append(h)
+            if i < len(self.down) - 1:
+                h = _max_pool2(h)
+
+        # style vector from the deepest features
+        style = h.float().mean((1, 2))
+        style = style / (torch.linalg.vector_norm(style, dim=-1, keepdim=True) + 1e-6)
+        style = torch.relu(style @ self.style_dense)
+
+        # decoder: conv(concat(up, skip)) as conv(up) accumulated into conv(skip)
+        n_levels = len(self.down)
+        for i, blk in enumerate(self.up):
+            skip_t = skips[n_levels - 2 - i]
+            c_up = h.shape[-1]
+            up = _upsample2(h)
+            a = conv3x3_fused(up, w(blk.conv1[..., :c_up]))
+            del up
+            y1, m1 = conv3x3_fused(skip_t, w(blk.conv1[..., c_up:]), accum=a, emit_moments=True)
+            del a
+            skip = _upsample2(h @ w(blk.proj[:c_up])) + skip_t @ w(blk.proj[c_up:])
+            h = self._tail(blk, y1, m1, skip)
+            del y1, skip
+            h += (style @ self.style_proj[i]).to(dt)[:, None, None, :]
+        return (h @ w(self.head)).float() + self.head_bias

@@ -1,0 +1,67 @@
+"""U-Net weights: the JAX parameter tree as numpy, and the port's state_dict.
+
+The JAX package keeps weights as an orbax checkpoint of the `init_unet`
+pytree (3x3 convs HWIO (3, 3, C, Co), 1x1 convs (1, 1, C, Co)). The port
+reads the same tree from an `.npz` whose keys are the tree's paths joined
+with dots ("down.0.conv1", "style_proj.2", ...) and whose arrays are the
+leaves as they are, and converts it to the `UNet` state_dict: 3x3 convs to
+(3, 3, Co, C), the layout the conv kernel stages, 1x1 convs to (C, Co).
+
+`unet_checkpoint.npz` beside this module is the trained checkpoint
+`checkpoints/unet` of the repository, exported leaf by leaf with
+`np.savez(path, **flatten_tree(load_checkpoint("checkpoints/unet")))` (the
+JAX package's loader, which needs orbax; the port needs neither).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "DEFAULT_WEIGHTS",
+    "flatten_tree",
+    "load_weights",
+    "state_dict_from_tree",
+]
+
+DEFAULT_WEIGHTS = Path(__file__).resolve().parent / "unet_checkpoint.npz"
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """{dotted path: numpy leaf} of a nested dict / list parameter tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out: dict[str, np.ndarray] = {}
+    for key, value in items:
+        out.update(flatten_tree(value, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def _convert(name: str, leaf: np.ndarray) -> torch.Tensor:
+    a = np.asarray(leaf, dtype=np.float32)
+    if a.ndim == 4 and a.shape[:2] == (3, 3):
+        a = a.transpose(0, 1, 3, 2)  # HWIO -> (3, 3, Co, C)
+    elif a.ndim == 4 and a.shape[:2] == (1, 1):
+        a = a[0, 0]  # 1x1 conv -> (C, Co)
+    elif a.ndim == 4:
+        raise ValueError(f"unexpected kernel shape {a.shape} for {name}")
+    return torch.from_numpy(np.array(a, order="C"))  # a writable copy
+
+
+def state_dict_from_tree(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The `UNet` state_dict for a flattened JAX parameter tree."""
+    return {name: _convert(name, leaf) for name, leaf in flat.items()}
+
+
+def load_weights(path: str | Path = DEFAULT_WEIGHTS) -> dict[str, torch.Tensor]:
+    """The `UNet` state_dict stored in an `.npz` of the flattened JAX tree."""
+    with np.load(Path(path)) as data:
+        return state_dict_from_tree({k: data[k] for k in data.files})

@@ -26,6 +26,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .._build import check_launch, cuda_stream
+
 __all__ = [
     "CC_BLOCK",
     "SENTINEL",
@@ -190,15 +192,6 @@ def _check_fg(fg: torch.Tensor, connectivity: int) -> None:
             raise ValueError(f"batch of {b} images exceeds the kernel grid")
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with cudaError {err}")
-
-
 def local_cc(fg: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     """In-tile root indices (B, H, W) int32 for a (B, H, W) bool mask.
 
@@ -214,9 +207,9 @@ def local_cc(fg: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
         return out
     with torch.cuda.device(fg.device):
         err = _library().amt_cc_local(
-            fg.data_ptr(), out.data_ptr(), b, h, w, connectivity, _stream(fg)
+            fg.data_ptr(), out.data_ptr(), b, h, w, connectivity, cuda_stream(fg)
         )
-    _raise_on(err, "local_cc")
+    check_launch(err, "local_cc")
     launch_counts["local_cc"] += 1
     return out
 
@@ -245,8 +238,8 @@ def local_resweep(
         return out
     with torch.cuda.device(fg.device):
         err = _library().amt_cc_resweep(
-            fg.data_ptr(), init.data_ptr(), out.data_ptr(), b, h, w, connectivity, _stream(fg)
+            fg.data_ptr(), init.data_ptr(), out.data_ptr(), b, h, w, connectivity, cuda_stream(fg)
         )
-    _raise_on(err, "local_resweep")
+    check_launch(err, "local_resweep")
     launch_counts["local_resweep"] += 1
     return out

@@ -18,6 +18,10 @@ label) tells the caller whether the result is exact. The reference's
 sort-merge joins, which avoid scatters on the TPU, become `torch.unique`,
 `searchsorted` and `scatter_reduce`. The merge loop checks for early exit
 on the host.
+
+`relabel_sequential` and `relabel_sequential_filtered` renumber label
+images per image of a batch with one stable sort each, as the JAX
+functions do.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ import torch.nn.functional as F
 
 from .cc_cuda import CC_BLOCK, local_cc, local_resweep, neighbor_min, neighbor_offsets
 
-__all__ = ["component_roots", "label", "resweep_seeds"]
+__all__ = [
+    "component_roots",
+    "label",
+    "relabel_sequential",
+    "relabel_sequential_filtered",
+    "resweep_seeds",
+]
 
 # the merge propagates minima one boundary-graph hop per round; 32 covers a
 # component spanning every tile of a 4096-pixel axis, and the certificate
@@ -222,4 +232,54 @@ def label(mask: torch.Tensor, connectivity: int = 2, checked: bool = True) -> to
     mapping = _rank_roots(roots.reshape(b, n))
     out = torch.gather(mapping, 1, roots.reshape(b, n).long()).reshape(b, h, w)
     out = torch.where(fg, out, 0).to(torch.int32)
+    return out[0] if single else out
+
+
+def _sorted_runs(label_image: torch.Tensor):
+    """Stable per-image sort of the flattened labels of a (B, H, W) batch.
+    Returns (values, positions, is_new): is_new marks the first slot of each
+    run of equal values."""
+    b = label_image.shape[0]
+    s, pos = torch.sort(label_image.reshape(b, -1), dim=1, stable=True)
+    is_new = torch.ones_like(s, dtype=torch.bool)
+    is_new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return s, pos, is_new
+
+
+def _scatter_ranks(ranks: torch.Tensor, pos: torch.Tensor, shape) -> torch.Tensor:
+    out = torch.empty_like(ranks)
+    out.scatter_(1, pos, ranks)
+    return out.reshape(shape)
+
+
+def relabel_sequential(label_image: torch.Tensor) -> torch.Tensor:
+    """Relabel each image of a (H, W) or (B, H, W) label batch to
+    consecutive labels 1..N, keeping the ascending order of the original
+    values (`skimage.segmentation.relabel_sequential`); values <= 0 become
+    background. Returns int32."""
+    single = label_image.dim() == 2
+    lbl = label_image[None] if single else label_image
+    s, pos, is_new = _sorted_runs(lbl)
+    positive = s > 0
+    ranks = torch.where(positive, torch.cumsum((is_new & positive).to(torch.int32), 1), 0)
+    out = _scatter_ranks(ranks.to(torch.int32), pos, lbl.shape)
+    return out[0] if single else out
+
+
+def relabel_sequential_filtered(label_image: torch.Tensor, min_size: int) -> torch.Tensor:
+    """Drop labels of fewer than `min_size` pixels and relabel the survivors
+    to consecutive 1..N in ascending order of their values, per image, in
+    one sort (sizes are the run lengths of the sorted labels). Returns int32."""
+    single = label_image.dim() == 2
+    lbl = label_image[None] if single else label_image
+    s, pos, is_new = _sorted_runs(lbl)
+    b, n = s.shape
+    iota = torch.arange(n, device=s.device).expand(b, n)
+    is_last = torch.ones_like(is_new)
+    is_last[:, :-1] = is_new[:, 1:]
+    first = torch.cummax(torch.where(is_new, iota, 0), 1).values
+    last = n - 1 - torch.cummax(torch.where(is_last.flip(1), iota, 0), 1).values.flip(1)
+    keep = (s > 0) & (last - first + 1 >= min_size)
+    ranks = torch.where(keep, torch.cumsum((is_new & keep).to(torch.int32), 1), 0)
+    out = _scatter_ranks(ranks.to(torch.int32), pos, lbl.shape)
     return out[0] if single else out

@@ -1,4 +1,5 @@
-"""On-card smoke run of the PyTorch port's classical plate path.
+"""On-card smoke run of the PyTorch port: the classical plate path and the
+deep segmentation path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -7,40 +8,58 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its lines:
 
 1. device - the card's name and `nvidia-smi` name / power limit;
-2. build - the CUDA kernels, compiled from `csrc/` with nvcc for sm_90a;
-3. kernels against plain - each kernel bit-exact against its plain
-   PyTorch version on the card, for connectivity 1 and 2, on the main
-   path's 8 x 2048^2 masks, a serpentine that hits the sweep cap, a ragged
-   1000 x 1500 mask, and all-background / all-foreground masks;
-4. main path - 8 synthetic 2048^2 4-channel wells through
-   `PlateRunner.run`, with the kernel launch counts of that run, and the
-   card's outputs for well 0 held against the plain path on the CPU;
-5. timing - steady-state well throughput of the device program, per-stage
-   milliseconds, and each kernel's time beside its bound and its plain
-   version's time;
-6. the `kernels` JSON line, then the card's name and power limit, then the
+2. build - the five CUDA kernels of `csrc/` (four libraries), compiled with
+   nvcc for sm_90a, one nvcc per source, all started together, with their
+   ptxas reports;
+3. kernels against plain - each kernel against its plain PyTorch version on
+   the card: both CC kernels bit-exact on 8 x 2048^2 masks, a serpentine
+   that hits the sweep cap, a ragged 1000 x 1500 mask and all-background /
+   all-foreground masks; the fused 3x3 conv on each of the 16 (C, Co, level,
+   prologue, ReLU, accum, moments) combinations of a 8 x 2048^2 forward plus
+   a ragged 1000 x 1504 and a 3-row image, within one bf16 step; the
+   GroupNorm moments at 8 x 2048^2 x 32 and on ragged shapes, within 1e-5;
+4. plate path - 8 synthetic 2048^2 4-channel wells through
+   `PlateRunner.run` with its kernel launch counts, and well 0 held against
+   the plain path on the CPU;
+5. segmentation path - 8 synthetic 2048^2 images through
+   `SegmentationModel.batch_segment` with the trained weights and its
+   launch counts of all five kernels; the QC diffusion kernel bit-exact
+   against its plain version on that run's label images, a ragged crop and
+   a remainder pass; one 512^2 image on the card against the CPU plain path;
+6. timing - plate wells/s and per-stage ms; segmentation images/s split
+   into host preparation, forward, mask reconstruction and, within it, the
+   QC diffusion; each kernel's time beside its bound, its plain version's
+   time and, for the conv, cuDNN's bf16 `F.conv2d` on the same shapes;
+7. the `kernels` JSON line, then the card's name and power limit, then the
    final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
 script exits non-zero at once. `--cpu-rehearsal` runs every phase at a
 tiny size on the CPU with the plain versions (a check of the script's own
 control flow); it prints no device result and exits non-zero.
+`--profile DIR` adds a `torch.profiler` trace of one forward and one mask
+reconstruction of the segmentation batch: device time by kernel and the
+card's idle share, printed and written to DIR/profile_segment.txt.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-KERNEL_SOURCE = "arcadia_microscopy_tools_tpu_torch/csrc/cc_local.cu"
+BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
+KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse"]
 
 
 def log(msg: str) -> None:
@@ -73,15 +92,157 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_host(fn, reps: int, sync) -> float:
+def time_host(fn, reps: int, sync, warmup: int = 1) -> float:
     """Mean milliseconds per call by the host clock around a synchronize."""
-    fn()
+    for _ in range(warmup):
+        fn()
     sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     sync()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_windows(windows: dict, out_dir: str) -> None:
+    """Trace each (name -> fn) window with torch.profiler; print device
+    milliseconds by kernel, the window's wall time and the card's idle share
+    (1 - summed kernel time / wall time; kernels of one stream do not
+    overlap), and write the full tables to out_dir/profile_segment.txt."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e) -> float:
+        return float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
+
+    lines = []
+    for name, fn in windows.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: operator rows repeat their kernels' time
+        events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=device_us, reverse=True)
+        busy_ms = sum(device_us(e) for e in events) / 1e3
+        log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f}")
+        for e in events[:12]:
+            if device_us(e) > 0:
+                log(f"[profile] {name}:   {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        sort = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        lines += [f"== {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms",
+                  prof.key_averages().table(sort_by=sort, row_limit=60)]
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_segment.txt").write_text("\n".join(lines))
+
+
+def port_modules() -> SimpleNamespace:
+    """Every module of the port this script drives (imported here, so that a
+    machine without a card fails at the device check before any of them)."""
+    import arcadia_microscopy_tools_tpu_torch as pkg
+    from arcadia_microscopy_tools_tpu_torch import _build, testing
+    from arcadia_microscopy_tools_tpu_torch.core import microplate
+    from arcadia_microscopy_tools_tpu_torch.models import (
+        conv_cuda,
+        flows,
+        flows_cuda,
+        gn_cuda,
+        unet,
+        weights,
+    )
+    from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, compaction, fused, labeling
+    from arcadia_microscopy_tools_tpu_torch.ops import regionprops
+    from arcadia_microscopy_tools_tpu_torch.parallel import plate
+
+    return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
+        _build, testing, microplate, conv_cuda, flows, flows_cuda, gn_cuda, unet, weights,
+        cc_cuda, compaction, fused, labeling, regionprops, plate,
+    )}, pkg=pkg)
+
+
+def reset_all_counts(m) -> None:
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda):
+        mod.reset_launch_counts()
+
+
+def all_counts(m) -> dict[str, int]:
+    out = {}
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda):
+        out.update(mod.launch_counts)
+    return out
+
+
+def forward_conv_shapes(b: int, size: int, nb=(32, 64, 128, 256)):
+    """The 16 conv3x3_fused calls of one U-Net forward on (b, size, size):
+    (name, C, Co, H, prologue+ReLU, accum, moments), in call order."""
+    calls = []
+    h = size
+    for i, co in enumerate(nb):
+        if i:  # down0.conv1 has a 3-channel input and is F.conv2d
+            calls.append((f"down{i}.conv1", nb[i - 1], co, h, False, False, True))
+        calls.append((f"down{i}.conv2", co, co, h, True, False, True))
+        h //= 2
+    for i, lv in enumerate(reversed(range(len(nb) - 1))):
+        h = size >> lv
+        c_up, co = nb[lv + 1], nb[lv]
+        calls.append((f"up{i}.conv1_up", c_up, co, h, False, False, False))
+        calls.append((f"up{i}.conv1_skip", co, co, h, False, True, True))
+        calls.append((f"up{i}.conv2", co, co, h, True, False, True))
+    return calls
+
+
+def conv_operands(b, h, w, c, co, pro, acc, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    wt = (torch.randn((3, 3, co, c), generator=g, device=dev) * math.sqrt(2 / (9 * c))).to(
+        torch.bfloat16
+    )
+    kw = {}
+    if pro:
+        kw["prologue"] = (
+            torch.randn((b, c), generator=g, device=dev) * 0.5 + 1,
+            torch.randn((b, c), generator=g, device=dev) * 0.1,
+        )
+        kw["relu"] = True
+    if acc:
+        kw["accum"] = torch.randn((b, h, w, co), generator=g, device=dev).to(torch.bfloat16)
+    return x, wt, kw
+
+
+def check_conv(m, x, wt, kw, moments: bool) -> float:
+    """Kernel vs plain: outputs within one bf16 step (2^-7 of the value,
+    plus 1e-4 of the largest magnitude for sums that cancel); moments within
+    one bf16 step per value of the plain moments, and within 1e-5 of the
+    plain float32 sums of the kernel's own output. Returns the max abs
+    output error."""
+    got = m.conv_cuda.conv3x3_fused(x, wt, emit_moments=moments, **kw)
+    want = m.conv_cuda.conv3x3_fused_plain(x, wt, emit_moments=moments, **kw)
+    (y, mo), (yw, mow) = (got, want) if moments else ((got, None), (want, None))
+    yf, ywf = y.float(), yw.float()
+    d = (yf - ywf).abs()
+    if not bool((d <= ywf.abs() / 128 + 1e-4 * ywf.abs().max()).all()):
+        raise RuntimeError(f"conv3x3_fused output beyond one bf16 step: max {float(d.max())}")
+    if moments:
+        a1, a2 = ywf.abs().sum((1, 2)), (ywf * ywf).sum((1, 2))
+        if not bool(((mo[0] - mow[0]).abs() <= a1 / 128 + 1e-5 * a1).all()) or not bool(
+            ((mo[1] - mow[1]).abs() <= a2 / 64 + 1e-5 * a2).all()
+        ):
+            raise RuntimeError("conv3x3_fused moments differ from the plain moments")
+        own1, own2 = yf.sum((1, 2)), (yf * yf).sum((1, 2))
+        s1, s2 = yf.abs().sum((1, 2)), own2
+        if not bool(((mo[0] - own1).abs() <= 1e-5 * s1 + 1e-6).all()) or not bool(
+            ((mo[1] - own2).abs() <= 1e-5 * s2 + 1e-6).all()
+        ):
+            raise RuntimeError("conv3x3_fused moments differ from the sums of its own output")
+    return float(d.max()) if d.numel() else 0.0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -91,6 +252,7 @@ def main(argv: list[str] | None = None) -> int:
         action="store_true",
         help="tiny sizes on the CPU with the plain versions; prints no device result",
     )
+    parser.add_argument("--profile", metavar="DIR", help="also trace the segmentation batch")
     args = parser.parse_args(argv)
     rehearsal = args.cpu_rehearsal
 
@@ -101,22 +263,13 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
 
-    from arcadia_microscopy_tools_tpu_torch import MicroplateLayout, PlateRunConfig, PlateRunner
-    from arcadia_microscopy_tools_tpu_torch._build import load_kernel_library
-    from arcadia_microscopy_tools_tpu_torch.core.microplate import Well
-    from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda
-    from arcadia_microscopy_tools_tpu_torch.ops.compaction import compact_by_root
-    from arcadia_microscopy_tools_tpu_torch.ops.fused import fused_classical_mask
-    from arcadia_microscopy_tools_tpu_torch.ops.labeling import component_roots, resweep_seeds
-    from arcadia_microscopy_tools_tpu_torch.ops.regionprops import measure_compacted
-    from arcadia_microscopy_tools_tpu_torch.parallel.plate import (
-        _build_well_program,
-        foreground_capacity,
+    m = port_modules()
+    cc_cuda, conv_cuda, gn_cuda, flows_cuda, flows = (
+        m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.flows
     )
-    from arcadia_microscopy_tools_tpu_torch.testing import serpentine, synthetic_wells
-
     n_wells, n_ch = 8, 4
     size, blobs, ragged = (2048, 300, (1000, 1500)) if not rehearsal else (256, 10, (200, 300))
+    seg_size, seg_blobs, check_size = (2048, 300, 512) if not rehearsal else (128, 6, 64)
     dev = torch.device("cpu" if rehearsal else "cuda")
     sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
     t_start = time.perf_counter()
@@ -131,42 +284,46 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 2. build -----------------------------------------------------------------
     if not rehearsal:
-        built = load_kernel_library("cc_local")
-        say(f"[build] {built.path.name} in {built.build_seconds:.1f} s")
-        # the four template instantiations report alike: each distinct line once
-        reports = [line.split(":", 1)[-1].strip() for line in built.ptxas_log.splitlines()
-                   if "registers" in line or "spill" in line]
-        for report in dict.fromkeys(reports):
-            say(f"[build] ptxas: {report}")
+        t0 = time.perf_counter()
+        built = m._build.load_kernel_libraries(KERNEL_LIBRARIES)
+        say(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
+            f"(one nvcc per source, in parallel)")
+        for name, lib in built.items():
+            # template instantiations report alike: each distinct line once
+            reports = [line.split(":", 1)[-1].strip() for line in lib.ptxas_log.splitlines()
+                       if "registers" in line or "spill" in line]
+            for report in dict.fromkeys(reports):
+                say(f"[build] {name} ptxas: {report}")
         smem = 2 * cc_cuda.CC_BLOCK**2 * 4 + cc_cuda.CC_BLOCK**2
-        say(f"[build] dynamic shared memory per CTA: {smem} B (two int32 label tiles + mask)")
+        say(f"[build] cc_local dynamic shared memory per CTA: {smem} B")
 
     # -- data ---------------------------------------------------------------------
     t0 = time.perf_counter()
-    wells = synthetic_wells(n_wells, n_ch, size, size, blobs, seed=0)
+    wells = m.testing.synthetic_wells(n_wells, n_ch, size, size, blobs, seed=0)
     say(f"[data] {n_wells} wells of {n_ch}x{size}x{size} uint16, {blobs} blobs each, "
         f"made in {time.perf_counter() - t0:.1f} s")
     staged = torch.from_numpy(wells).to(dev)
-    masks = fused_classical_mask(staged[:, 0])
+    masks = m.fused.fused_classical_mask(staged[:, 0])
     say(f"[data] foreground fraction {float(masks.float().mean()):.4f}")
 
     # -- 3. kernels against their plain versions ------------------------------------
     masks_np = masks.cpu().numpy()
     cases = {
         f"main {n_wells}x{size}^2": masks,
-        "serpentine": torch.from_numpy(serpentine(masks_np[0, :512, :512])[None]).to(dev),
+        "serpentine": torch.from_numpy(m.testing.serpentine(masks_np[0, :512, :512])[None]).to(dev),
         f"ragged {ragged[0]}x{ragged[1]}": masks[:1, : ragged[0], : ragged[1]].contiguous(),
         "empty": torch.zeros((1, 256, 384), dtype=torch.bool, device=dev),
         "full": torch.ones((1, 256, 384), dtype=torch.bool, device=dev),
     }
-    max_err = {"local_cc": 0.0, "local_resweep": 0.0}
+    max_err = {"local_cc": 0.0, "local_resweep": 0.0, "conv3x3_fused": 0.0,
+               "lane_moments": 0.0, "diffuse": 0.0}
     for conn in (1, 2):
         for name, fg in cases.items():
             got = cc_cuda.local_cc(fg, conn)
             want = cc_cuda.local_cc_plain(fg, conn)
             err = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
             max_err["local_cc"] = max(max_err["local_cc"], err)
-            seeds = resweep_seeds(fg, conn)
+            seeds = m.labeling.resweep_seeds(fg, conn)
             got = cc_cuda.local_resweep(fg, seeds, conn)
             want = cc_cuda.local_resweep_plain(fg, seeds, conn)
             err2 = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
@@ -179,27 +336,60 @@ def main(argv: list[str] | None = None) -> int:
     if int(caps.max()) != 256:
         raise RuntimeError("the serpentine did not reach the 256-sweep cap")
     sync()
-    say("[kernels] both kernels equal their plain versions bit for bit")
+    say("[kernels] both CC kernels equal their plain versions bit for bit")
 
-    # -- 4. main path ---------------------------------------------------------------
-    config = PlateRunConfig(max_cells=1024, min_size=20)
-    layout = MicroplateLayout([Well(id=f"A{k + 1:02d}") for k in range(n_wells)])
+    conv_calls = forward_conv_shapes(n_wells, seg_size)
+    extra_conv = [("ragged 1000x1504", 1, 1000, 1504, 64, 32, True, True),
+                  ("3-row", 2, 3, 200, 32, 64, True, True)] if not rehearsal else [
+                  ("ragged 40x56", 1, 40, 56, 64, 32, True, True)]
+    for k, (name, c, co, h, pro, acc, mom) in enumerate(conv_calls):
+        x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=k)
+        err = check_conv(m, x, wt, kw, mom)
+        max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
+        say(f"[kernels] conv3x3_fused {name} ({n_wells}x{h}^2, {c}->{co}, prologue+relu {pro}, "
+            f"accum {acc}, moments {mom}): max abs err {err:g}, within one bf16 step")
+        del x, wt, kw
+    for k, (name, b, h, w, c, co, pro, mom) in enumerate(extra_conv):
+        x, wt, kw = conv_operands(b, h, w, c, co, pro, True, dev, seed=100 + k)
+        err = check_conv(m, x, wt, kw, mom)
+        max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
+        say(f"[kernels] conv3x3_fused {name} ({b}x{h}x{w}, {c}->{co}, prologue, relu, accum, "
+            f"moments): max abs err {err:g}, within one bf16 step")
+    gn_cases = [(n_wells, seg_size, seg_size, 32), (1, 1000, 1504, 32), (2, 37, 45, 64),
+                (1, 64, 64, 256)] if not rehearsal else [(2, 64, 64, 32), (1, 37, 45, 64)]
+    for k, shape in enumerate(gn_cases):
+        g = torch.Generator(device=dev).manual_seed(200 + k)
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        got, want = gn_cuda.lane_moments(x), gn_cuda.lane_moments_plain(x)
+        scale = (x.float().abs().sum((1, 2)), (x.float() ** 2).sum((1, 2)))
+        rel = max(float(((a - b).abs() / s).max()) for a, b, s in zip(got, want, scale))
+        max_err["lane_moments"] = max(
+            max_err["lane_moments"], max(float((a - b).abs().max()) for a, b in zip(got, want))
+        )
+        say(f"[kernels] lane_moments {tuple(shape)}: max relative err {rel:.2e} (limit 1e-5)")
+        if rel > 1e-5:
+            raise RuntimeError("lane_moments differs from its plain version beyond 1e-5")
+    sync()
+
+    # -- 4. plate path --------------------------------------------------------------
+    config = m.plate.PlateRunConfig(max_cells=1024, min_size=20)
+    layout = m.pkg.MicroplateLayout([m.microplate.Well(id=f"A{k + 1:02d}") for k in range(n_wells)])
     source = {w.id: wells[k] for k, w in enumerate(layout)}
-    runner = PlateRunner(config, device=dev)
-    cc_cuda.reset_launch_counts()
+    runner = m.plate.PlateRunner(config, device=dev)
+    reset_all_counts(m)
     t0 = time.perf_counter()
     results = runner.run(layout, source)
     sync()
     run_s = time.perf_counter() - t0
-    launches = dict(cc_cuda.launch_counts)
-    say(f"[main] PlateRunner.run: {n_wells} wells in {run_s:.3f} s (first run, "
-        f"includes staging and host tables); launches {launches}")
+    plate_launches = all_counts(m)
+    say(f"[plate] PlateRunner.run: {n_wells} wells in {run_s:.3f} s (first run, "
+        f"includes staging and host tables); launches {plate_launches}")
     if results.failed_wells:
         raise RuntimeError(f"failed wells: {results.failed_wells}")
     if results.timings["capacity_retries"]:
         raise RuntimeError("a well needed a capacity retry")
     counts = [len(results.tables[w]) for w in layout.well_ids]
-    say(f"[main] cells per well: {counts}")
+    say(f"[plate] cells per well: {counts}")
     lo, hi = (0.5 * blobs, 1.2 * blobs) if not rehearsal else (1, 2 * blobs)
     if not all(lo <= c <= hi for c in counts):
         raise RuntimeError(f"implausible cell counts {counts} for {blobs} blobs per well")
@@ -207,36 +397,36 @@ def main(argv: list[str] | None = None) -> int:
     numeric = frame.drop(columns=["well_id"]).to_numpy(float)
     if not np.isfinite(numeric).all():
         raise RuntimeError("non-finite values in the plate tables")
-    if not rehearsal and not (launches["local_cc"] > 0 and launches["local_resweep"] > 0):
-        raise RuntimeError(f"the main path did not launch both kernels: {launches}")
+    if not rehearsal and not (plate_launches["local_cc"] > 0 and plate_launches["local_resweep"] > 0):
+        raise RuntimeError(f"the plate path did not launch both CC kernels: {plate_launches}")
 
-    program = _build_well_program(config, n_ch)
+    program = m.plate._build_well_program(config, n_ch)
     packed, health = program(staged)
     health = health.cpu().numpy()
-    say(f"[main] health (components, overflow, converged) per well: {health.tolist()}")
+    say(f"[plate] health (components, overflow, converged) per well: {health.tolist()}")
     if not ((health[:, 2] == 1).all() and (health[:, 1] == 0).all()
             and (health[:, 0] <= config.max_cells).all()):
         raise RuntimeError("a well is unconverged or over capacity")
 
     # well 0 on the card against the plain path on the CPU, stage by stage
-    cpu_mask = fused_classical_mask(torch.from_numpy(wells[:1, 0]))
+    cpu_mask = m.fused.fused_classical_mask(torch.from_numpy(wells[:1, 0]))
     mask_disagree = float((cpu_mask != masks[:1].cpu()).float().mean())
     say(f"[check] well 0 mask: card vs CPU disagree on {mask_disagree:.2e} of pixels")
     if mask_disagree > 1e-4:
         raise RuntimeError("card and CPU masks disagree on more than 1e-4 of pixels")
     fg0 = masks[:1]
-    roots_d, conv_d = component_roots(fg0, pair_cap=config.pair_cap)
-    roots_c, conv_c = component_roots(fg0.cpu(), pair_cap=config.pair_cap)
+    roots_d, conv_d = m.labeling.component_roots(fg0, pair_cap=config.pair_cap)
+    roots_c, conv_c = m.labeling.component_roots(fg0.cpu(), pair_cap=config.pair_cap)
     if not (torch.equal(roots_d.cpu(), roots_c) and torch.equal(conv_d.cpu(), conv_c)):
         raise RuntimeError("component roots on the card differ from the CPU")
-    cap = foreground_capacity(config, size, size)
-    comp_d, comp_c = compact_by_root(roots_d, cap), compact_by_root(roots_c, cap)
+    cap = m.plate.foreground_capacity(config, size, size)
+    comp_d, comp_c = m.compaction.compact_by_root(roots_d, cap), m.compaction.compact_by_root(roots_c, cap)
     if not all(torch.equal(a.cpu(), b) for a, b in zip(comp_d, comp_c)):
         raise RuntimeError("compaction on the card differs from the CPU")
-    props_d, int_d = measure_compacted(
+    props_d, int_d = m.regionprops.measure_compacted(
         comp_d.seg, comp_d.idx, roots_d, staged[:1], config.max_cells, size
     )
-    props_c, int_c = measure_compacted(
+    props_c, int_c = m.regionprops.measure_compacted(
         comp_c.seg, comp_c.idx, roots_c, torch.from_numpy(wells[:1]), config.max_cells, size
     )
     worst = 0.0
@@ -270,68 +460,233 @@ def main(argv: list[str] | None = None) -> int:
         f"relative difference {worst:.2e}")
     if worst > 1e-5:
         raise RuntimeError("float columns differ from the CPU beyond 1e-5 relative")
+    del comp_d, comp_c, props_d, props_c, int_d, int_c, roots_d, roots_c
 
-    # -- 5. timing ------------------------------------------------------------------
+    # -- 5. segmentation path --------------------------------------------------------
+    images = list(m.testing.synthetic_wells(n_wells, 1, seg_size, seg_size, seg_blobs, seed=1)[:, 0]
+                  .astype(np.float64))
+    model = m.pkg.SegmentationModel(checkpoint_path=m.weights.DEFAULT_WEIGHTS, device=dev)
+    _ = model.network  # weights loaded before the counted run
+    reset_all_counts(m)
+    t0 = time.perf_counter()
+    seg = model.batch_segment(images, show_progress=False)
+    sync()
+    seg_first_s = time.perf_counter() - t0
+    seg_launches = all_counts(m)
+    say(f"[segment] batch_segment: {n_wells} images of {seg_size}^2 in {seg_first_s:.3f} s "
+        f"(first run); launches {seg_launches}")
+    if any(s is None for s in seg):
+        raise RuntimeError("batch_segment returned None for an image")
+    cells = [int(s.max()) for s in seg]
+    say(f"[segment] cells per image: {cells} ({seg_blobs} blobs per image)")
+    if min(cells) <= 0:
+        raise RuntimeError("an image has no cells")
+    if not rehearsal and min(seg_launches.values()) <= 0:
+        raise RuntimeError(f"the segmentation path did not launch every kernel: {seg_launches}")
+
+    # the run's intermediates: network output, the QC's labels and sources
+    prep = [model._prepare_image(img)[0] for img in images]
+    x_seg = torch.from_numpy(np.stack(prep)).to(dev)
+    params = model._resolve_and_validate_parameters(None, None, None, None, None)
+    with torch.inference_mode():
+        out = model.network(x_seg)
+        fl = out[..., :2] * 0.2
+        active = out[..., 2] > 0
+        landing = flows.follow_flows_indices(fl, active, 200)
+        qc_lbl = m.labeling.relabel_sequential_filtered(
+            flows.masks_from_landing(landing, active, min_size=0), model.min_size
+        ).contiguous()
+        qc_src = flows._centre_sources(qc_lbl, model.max_cells).contiguous()
+        if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (n_wells, seg_size, seg_size, 3):
+            raise RuntimeError(f"network output not finite or of shape {tuple(out.shape)}")
+
+        # kernel 6 bit-exact on the run's label images (cells straddle the
+        # 112-pixel window seams), a ragged crop and a remainder pass
+        diff_cases = [
+            ("main labels, 128 iterations", qc_lbl, qc_src, 128),
+            ("main labels, 13 iterations (remainder pass of 5)", qc_lbl[:2], qc_src[:2], 13),
+            ("ragged 1000x1504 crop", qc_lbl[:1, :1000, :1504].contiguous(),
+             qc_src[:1, :1000, :1504].contiguous(), 128),
+        ]
+        for name, lb, sr, it in diff_cases:
+            got = flows_cuda.diffuse(lb, sr, it)
+            want = flows_cuda.diffuse_plain(lb, sr, it)
+            err = float((got - want).abs().max())
+            max_err["diffuse"] = max(max_err["diffuse"], err)
+            say(f"[kernels] diffuse {name} {tuple(lb.shape)}: max abs err {err:g}")
+            if not torch.equal(got, want):
+                raise RuntimeError(f"diffuse differs from its plain version on {name}")
+        say("[kernels] diffuse equals its plain version bit for bit")
+
+        # one image on the card against the CPU plain path
+        img = m.testing.synthetic_wells(1, 1, check_size, check_size, 20, seed=2)[0, 0].astype(np.float64)
+        cpu_model = m.pkg.SegmentationModel(checkpoint_path=m.weights.DEFAULT_WEIGHTS, device="cpu")
+        xi = torch.from_numpy(model._prepare_image(img)[0][None])
+        out_card = model.network(xi.to(dev)).cpu()
+        out_cpu = cpu_model.network(xi)
+        scale = float(out_cpu.abs().max())
+        d = (out_card - out_cpu).abs()
+        say(f"[check] {check_size}^2 network output card vs CPU: mean abs {float(d.mean()):.4g}, "
+            f"max abs {float(d.max()):.4g}, output scale {scale:.4g} (limits 0.006 and 0.05 of scale)")
+        if float(d.mean()) > 0.006 * scale or float(d.max()) > 0.05 * scale:
+            raise RuntimeError("network output on the card differs from the CPU beyond tolerance")
+    lab_card, lab_cpu = model.segment(img), cpu_model.segment(img)
+    agree = float((lab_card == lab_cpu).mean())
+    say(f"[check] {check_size}^2 labels card vs CPU: {agree:.5f} of pixels agree; cells "
+        f"{int(lab_card.max())} vs {int(lab_cpu.max())} (limits 0.99 and +-1)")
+    if agree < 0.99 or abs(int(lab_card.max()) - int(lab_cpu.max())) > 1 or lab_cpu.max() <= 0:
+        raise RuntimeError("labels on the card differ from the CPU beyond tolerance")
+
+    # -- 6. timing ------------------------------------------------------------------
     reps = 5 if not rehearsal else 1
     program_ms = time_host(lambda: program(staged), reps, sync)
-    say(f"[time] device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
+    say(f"[time] plate device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
         f"{n_wells * 1e3 / program_ms:.2f} wells/s (pre-staged, host clock + synchronize)")
-
-    roots_b, _ = component_roots(masks, pair_cap=config.pair_cap)
-    comp_b = compact_by_root(roots_b, cap)
+    roots_b, _ = m.labeling.component_roots(masks, pair_cap=config.pair_cap)
+    comp_b = m.compaction.compact_by_root(roots_b, cap)
     stages = {
-        "mask": lambda: fused_classical_mask(staged[:, 0]),
-        "cc": lambda: component_roots(masks, pair_cap=config.pair_cap),
-        "compaction": lambda: compact_by_root(roots_b, cap),
-        "measure": lambda: measure_compacted(
+        "mask": lambda: m.fused.fused_classical_mask(staged[:, 0]),
+        "cc": lambda: m.labeling.component_roots(masks, pair_cap=config.pair_cap),
+        "compaction": lambda: m.compaction.compact_by_root(roots_b, cap),
+        "measure": lambda: m.regionprops.measure_compacted(
             comp_b.seg, comp_b.idx, roots_b, staged, config.max_cells, size
         ),
     }
     stage_ms = {k: round(time_host(fn, reps, sync), 3) for k, fn in stages.items()}
-    say(f"[time] per-stage ms per batch of {n_wells}: {json.dumps(stage_ms)}")
+    say(f"[time] plate per-stage ms per batch of {n_wells}: {json.dumps(stage_ms)}")
+    del comp_b
 
+    seg_reps = 3 if not rehearsal else 1
+    seg_ms = time_host(lambda: model.batch_segment(images, show_progress=False), seg_reps, sync)
+    with torch.inference_mode():
+        parts = {
+            "host prep": time_host(lambda: [model._prepare_image(i) for i in images], seg_reps, sync),
+            "forward": time_host(lambda: model.network(x_seg), seg_reps, sync),
+            "compute_masks": time_host(lambda: flows.compute_masks(
+                out, flow_threshold=float(params["flow_threshold"]), niter=200,
+                max_cells=model.max_cells, min_size=model.min_size), seg_reps, sync),
+            "qc diffusion": time_host(lambda: flows_cuda.diffuse(qc_lbl, qc_src, 128), seg_reps, sync),
+        }
+    say(f"[time] batch_segment: {seg_ms:.2f} ms per batch of {n_wells} {seg_size}^2 images, "
+        f"{n_wells * 1e3 / seg_ms:.3f} images/s (host clock + synchronize, images from host memory)")
+    say(f"[time] batch_segment parts, ms per batch: "
+        f"{json.dumps({k: round(v, 3) for k, v in parts.items()})} (qc diffusion is inside "
+        f"compute_masks)")
+
+    if args.profile and not rehearsal:
+        with torch.inference_mode():
+            profile_windows({
+                "forward": lambda: model.network(x_seg),
+                "compute_masks": lambda: flows.compute_masks(
+                    out, flow_threshold=float(params["flow_threshold"]), niter=200,
+                    max_cells=model.max_cells, min_size=model.min_size),
+            }, args.profile)
+
+    kernels = []
+
+    def entry(name, line_ref, launches, ms, plain_ms, bytes_ms, ops_ms, library_ms, source,
+              bound_ms=None):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{CSRC}/{source}",
+            "replaces": f"arcadia_microscopy_tools_tpu/{line_ref}",
+            "launches": launches,
+            "max_abs_err": max_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms) if bound_ms is None else bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        })
+
+    def timed(kernel, plain, kreps=20):
+        if rehearsal:
+            t = time_host(plain, 1, sync)
+            return t, t
+        return time_cuda(kernel, reps=kreps), time_cuda(plain, reps=2, warmup=1)
+
+    # CC kernels at the plate path's masks
     mask_b = masks
-    seeds_b = resweep_seeds(mask_b, 2, config.pair_cap)
+    seeds_b = m.labeling.resweep_seeds(mask_b, 2, config.pair_cap)
     px = mask_b.numel()
     ops_per_px_sweep = 9  # 8 neighbour minimums + 1 background select
-    kernels = []
-    timed = (
-        # name, Pallas body line, kernel, plain version, extra input B/px, seeds
+    for name, line, kernel, plain, extra_in, init in (
         ("local_cc", 32, lambda: cc_cuda.local_cc(mask_b),
          lambda: cc_cuda.local_cc_plain(mask_b), 0, None),
         ("local_resweep", 69, lambda: cc_cuda.local_resweep(mask_b, seeds_b),
          lambda: cc_cuda.local_resweep_plain(mask_b, seeds_b), 4, seeds_b),
-    )
-    for name, line, kernel, plain, extra_in, init in timed:
+    ):
         sweeps = cc_cuda.tile_sweep_counts(mask_b, 2, init)
         ops = float(sweeps.sum()) * cc_cuda.CC_BLOCK**2 * ops_per_px_sweep
-        bytes_moved = px * (1 + extra_in + 4)
-        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        bound_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
-        if rehearsal:
-            ms = plain_ms = time_host(plain, 1, sync)
-        else:
-            ms = time_cuda(kernel, reps=20)
-            plain_ms = time_cuda(plain, reps=3, warmup=1)
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": f"arcadia_microscopy_tools_tpu/ops/cc_pallas.py:{line}",
-            "launches": launches[name],
-            "max_abs_err": max_err[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None,
-        })
+        bytes_ms = px * (1 + extra_in + 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / NON_TENSOR_OPS_PER_S * 1e3
+        ms, plain_ms = timed(kernel, plain)
+        entry(name, f"ops/cc_pallas.py:{line}", seg_launches[name], ms, plain_ms, bytes_ms, ops_ms,
+              None, "cc_local.cu")
         say(f"[time] {name}: {ms:.4f} ms at {tuple(mask_b.shape)}; plain {plain_ms:.4f} ms; "
-            f"bound {max(bound_bytes, bound_ops):.4f} ms (bytes {bound_bytes:.4f}, "
-            f"operations {bound_ops:.4f}: {int(sweeps.sum())} tile sweeps, "
-            f"mean {float(sweeps.float().mean()):.1f}, max {int(sweeps.max())})")
+            f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: "
+            f"{int(sweeps.sum())} tile sweeps, mean {float(sweeps.float().mean()):.1f}, max "
+            f"{int(sweeps.max())}); launches: plate path {plate_launches[name]}, segmentation "
+            f"path {seg_launches[name]}")
 
-    # -- 6. result ------------------------------------------------------------------
+    # fused conv: the 16 calls of one forward, each timed at its shape
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, bound=0.0)
+    for k, (name, c, co, h, pro, acc, mom) in enumerate(conv_calls):
+        x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=k)
+        ms, plain_ms = timed(lambda: conv_cuda.conv3x3_fused(x, wt, emit_moments=mom, **kw),
+                             lambda: conv_cuda.conv3x3_fused_plain(x, wt, emit_moments=mom, **kw),
+                             kreps=10)
+        if rehearsal:
+            lib_ms = plain_ms
+        else:
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+            wc = wt.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib_ms = time_cuda(lambda: torch.nn.functional.conv2d(xc, wc, padding=1), reps=10)
+        px_l = n_wells * h * h
+        nbytes = 2 * px_l * (c + co + (co if acc else 0)) + 2 * 9 * c * co
+        flop = 2 * 9 * c * co * px_l
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_TENSOR_FLOP_PER_S * 1e3
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bytes", b_ms),
+                       ("ops", o_ms), ("bound", max(b_ms, o_ms))):
+            tot[key] += v
+        say(f"[time] conv3x3_fused {name} {n_wells}x{h}^2 {c}->{co}: {ms:.4f} ms "
+            f"({flop / ms / 1e9:.1f} TFLOP/s); bound {max(b_ms, o_ms):.4f} ms "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}); plain {plain_ms:.3f} ms; "
+            f"F.conv2d bf16 conv only {lib_ms:.4f} ms")
+        del x, wt, kw
+    say(f"[time] conv3x3_fused, all 16 calls of one forward: {tot['ms']:.3f} ms; bound "
+        f"{tot['bound']:.3f} ms (sum over calls of max(bytes {tot['bytes']:.3f}, operations "
+        f"{tot['ops']:.3f})); plain {tot['plain']:.3f} ms; F.conv2d conv only {tot['lib']:.3f} ms")
+
+    # GroupNorm moments at the forward's one call (the stem conv's output)
+    xg = (torch.randn((n_wells, seg_size, seg_size, 32), device=dev)).to(torch.bfloat16)
+    ms, plain_ms = timed(lambda: gn_cuda.lane_moments(xg), lambda: gn_cuda.lane_moments_plain(xg))
+    b_ms = xg.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    o_ms = xg.numel() * 3 / NON_TENSOR_OPS_PER_S * 1e3
+    say(f"[time] lane_moments {tuple(xg.shape)}: {ms:.4f} ms; bound {max(b_ms, o_ms):.4f} ms "
+        f"(bytes); plain {plain_ms:.4f} ms")
+    gn_row = ("lane_moments", "models/gn_pallas.py:66", seg_launches["lane_moments"], ms, plain_ms,
+              b_ms, o_ms, None, "gn_moments.cu")
+    del xg
+
+    # QC diffusion at the run's labels, 128 iterations
+    ms, plain_ms = timed(lambda: flows_cuda.diffuse(qc_lbl, qc_src, 128),
+                         lambda: flows_cuda.diffuse_plain(qc_lbl, qc_src, 128), kreps=5)
+    b_ms = qc_lbl.numel() * 12 / HBM_BYTES_PER_S * 1e3
+    o_ms = qc_lbl.numel() * 128 * 6 / NON_TENSOR_OPS_PER_S * 1e3
+    say(f"[time] diffuse {tuple(qc_lbl.shape)} x 128 iterations: {ms:.4f} ms; bound "
+        f"{max(b_ms, o_ms):.4f} ms (operations: 6 per pixel and iteration; bytes {b_ms:.4f}); "
+        f"plain {plain_ms:.3f} ms; {flows_cuda.DIFFUSE_HALO} iterations per launch")
+
+    # the conv's bound is the sum over its calls of each call's max(bytes, operations)
+    entry("conv3x3_fused", "models/conv_pallas.py:129", seg_launches["conv3x3_fused"], tot["ms"],
+          tot["plain"], tot["bytes"], tot["ops"], tot["lib"], "conv3x3_fused.cu", tot["bound"])
+    entry(*gn_row)
+    entry("diffuse", "models/flows_pallas.py:78", seg_launches["diffuse"], ms, plain_ms, b_ms, o_ms,
+          None, "diffuse.cu")
+
+    # -- 7. result ------------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from arcadia_microscopy_tools_tpu_torch import SegmentationModel
+from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, flows, flows_cuda, gn_cuda
+from arcadia_microscopy_tools_tpu_torch.models.weights import DEFAULT_WEIGHTS
 from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, labeling
 from arcadia_microscopy_tools_tpu_torch.ops.fused import fused_classical_mask
 from arcadia_microscopy_tools_tpu_torch.testing import serpentine, synthetic_wells
@@ -69,3 +72,73 @@ def test_component_roots_on_the_card_equal_the_cpu(cuda_device):
     roots, converged = labeling.component_roots(fg)
     ref_roots, ref_converged = labeling.component_roots(fg.cpu())
     assert torch.equal(roots.cpu(), ref_roots) and torch.equal(converged.cpu(), ref_converged)
+
+
+def _bf16(g, *shape, scale=1.0, device):
+    return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,h,w,c,co", [(2, 64, 80, 32, 32), (1, 40, 48, 64, 128), (1, 24, 32, 256, 128), (1, 3, 50, 32, 64)]
+)
+def test_conv3x3_fused_matches_plain(cuda_device, b, h, w, c, co):
+    """Within one bf16 step (the f32 sums run in another order); moments
+    within 1e-5 of the plain sums of the kernel's own output."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = _bf16(g, b, h, w, c, device=cuda_device)
+    wt = _bf16(g, 3, 3, co, c, scale=0.05, device=cuda_device)
+    pro = (torch.randn((b, c), generator=g, device=cuda_device) + 1,
+           torch.randn((b, c), generator=g, device=cuda_device) * 0.1)
+    acc = _bf16(g, b, h, w, co, device=cuda_device)
+    for kw in ({}, {"prologue": pro, "relu": True}, {"accum": acc}, {"prologue": pro, "accum": acc}):
+        y, (s1, s2) = conv_cuda.conv3x3_fused(x, wt, emit_moments=True, **kw)
+        yw = conv_cuda.conv3x3_fused_plain(x, wt, **kw).float()
+        d = (y.float() - yw).abs()
+        assert bool((d <= yw.abs() / 128 + 1e-4 * yw.abs().max()).all())
+        yf = y.float()
+        torch.testing.assert_close(s1, yf.sum((1, 2)), rtol=0, atol=1e-5 * float(yf.abs().sum()) + 1e-6)
+        torch.testing.assert_close(s2, (yf * yf).sum((1, 2)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_lane_moments_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for shape in [(2, 64, 64, 32), (1, 37, 45, 64), (1, 100, 100, 256)]:
+        x = _bf16(g, *shape, device=cuda_device)
+        for a, b in zip(gn_cuda.lane_moments(x), gn_cuda.lane_moments_plain(x)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iter", [13, 128])
+def test_diffuse_matches_plain_bit_for_bit(cuda_device, n_iter):
+    wells = torch.from_numpy(synthetic_wells(2, 1, 600, 500, 40, seed=2)[:, 0]).to(cuda_device)
+    lbl = labeling.label(fused_classical_mask(wells)).contiguous()
+    src = flows._centre_sources(lbl, 1024).contiguous()
+    got = flows_cuda.diffuse(lbl, src, n_iter)
+    assert torch.equal(got, flows_cuda.diffuse_plain(lbl, src, n_iter))
+
+
+@pytest.mark.gpu
+def test_new_wrappers_count_launches(cuda_device):
+    for mod in (conv_cuda, gn_cuda, flows_cuda):
+        mod.reset_launch_counts()
+    x = torch.zeros((1, 16, 16, 32), dtype=torch.bfloat16, device=cuda_device)
+    conv_cuda.conv3x3_fused(x, torch.zeros((3, 3, 32, 32), dtype=torch.bfloat16, device=cuda_device))
+    gn_cuda.lane_moments(x)
+    lbl = torch.ones((1, 16, 16), dtype=torch.int32, device=cuda_device)
+    flows_cuda.diffuse(lbl, torch.zeros((1, 16, 16), device=cuda_device), 20)
+    assert conv_cuda.launch_counts == {"conv3x3_fused": 1}
+    assert gn_cuda.launch_counts == {"lane_moments": 1}
+    assert flows_cuda.launch_counts == {"diffuse": 3}
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_fused(x.float(), torch.zeros((3, 3, 32, 32), device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_segmentation_on_the_card_matches_the_cpu(cuda_device):
+    img = synthetic_wells(1, 1, 256, 256, 12, seed=3)[0, 0].astype(np.float64)
+    card = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device=cuda_device).segment(img)
+    cpu = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device="cpu").segment(img)
+    assert abs(int(card.max()) - int(cpu.max())) <= 1 and (card == cpu).mean() >= 0.99

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and never mentions either in an import statement."""
+"""The PyTorch port stands alone: it imports neither JAX, orbax nor the JAX
+package, and never mentions them in an import statement; nor does
+`chip_smoke.py` with every port module it drives."""
 
 from __future__ import annotations
 
@@ -13,15 +14,24 @@ PORT = REPO / "arcadia_microscopy_tools_tpu_torch"
 
 _BLOCKER = """
 import sys
-for name in ("jax", "jaxlib", "arcadia_microscopy_tools_tpu"):
+for name in ("jax", "jaxlib", "orbax", "arcadia_microscopy_tools_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import arcadia_microscopy_tools_tpu_torch
 import arcadia_microscopy_tools_tpu_torch.ops.cc_cuda
+import arcadia_microscopy_tools_tpu_torch.ops.segment_reduce
 import arcadia_microscopy_tools_tpu_torch._build
+import arcadia_microscopy_tools_tpu_torch.model
+import arcadia_microscopy_tools_tpu_torch.models.segmentation
+import arcadia_microscopy_tools_tpu_torch.models.weights
 import arcadia_microscopy_tools_tpu_torch.testing
+import arcadia_microscopy_tools_tpu_torch.typing
+import arcadia_microscopy_tools_tpu_torch.utils
+import chip_smoke
+chip_smoke.port_modules()
+arcadia_microscopy_tools_tpu_torch.models.weights.load_weights()
 leaked = [
     m for m, mod in sys.modules.items()
-    if mod is not None and m.startswith(("jax", "arcadia_microscopy_tools_tpu."))
+    if mod is not None and m.startswith(("jax", "orbax", "arcadia_microscopy_tools_tpu."))
 ]
 assert not leaked, leaked
 print("ok")
@@ -38,7 +48,7 @@ def test_port_imports_without_jax():
 
 def test_no_import_mentions_jax_or_the_jax_package():
     pattern = re.compile(
-        r"^\s*(from|import)\s+(jax|jaxlib|arcadia_microscopy_tools_tpu)\b(?!_torch)", re.M
+        r"^\s*(from|import)\s+(jax|jaxlib|orbax|arcadia_microscopy_tools_tpu)\b(?!_torch)", re.M
     )
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
