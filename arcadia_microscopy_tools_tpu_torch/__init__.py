@@ -1,7 +1,7 @@
 """arcadia_microscopy_tools_tpu_torch: the PyTorch / CUDA port of
 arcadia_microscopy_tools_tpu.
 
-This package runs two paths in PyTorch:
+This package runs three paths in PyTorch:
 
 - the classical plate path - DoG, percentile rescale and a histogram
   threshold, two-phase connected components, foreground compaction,
@@ -11,7 +11,12 @@ This package runs two paths in PyTorch:
   `batch_segment` - U-Net forward, flow tracking and flow-error QC - with the
   fused 3x3 conv (`csrc/conv3x3_fused.cu`), GroupNorm moments
   (`csrc/gn_moments.cu`) and QC diffusion (`csrc/diffuse.cu`) as CUDA
-  kernels, and the CC kernels again in the sink labeling.
+  kernels, and the CC kernels again in the sink labeling;
+- the preprocessing and classical-segmentation ops composed by `Pipeline`
+  of `ImageOperation`s - Gaussian, median and rank filters, rolling ball,
+  global and local thresholds, binary morphology, labeling - with the
+  rank selection of median / rank filters over windows above 9 as a CUDA
+  kernel (`csrc/rank_select.cu`).
 
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 on CPU tensors the kernels' plain PyTorch versions run instead.
@@ -26,6 +31,7 @@ from .exceptions import MetadataWarning, SegmentationWarning
 from .models.segmentation import SegmentationModel
 from .ops.fused import fused_classical_mask
 from .ops.labeling import component_roots, label
+from .ops.pipeline import ImageOperation, Pipeline
 from .ops.regionprops import measure_compacted
 from .parallel.plate import PlateResults, PlateRunConfig, PlateRunner
 
@@ -33,8 +39,10 @@ __version__ = "0.4.0"
 
 __all__ = [
     "Channel",
+    "ImageOperation",
     "MetadataWarning",
     "MicroplateLayout",
+    "Pipeline",
     "PlateResults",
     "PlateRunConfig",
     "PlateRunner",

@@ -1,18 +1,22 @@
-"""Global histogram thresholds.
+"""Thresholds: histogram methods, image-level global thresholds, local
+threshold images and `apply_threshold`.
 
-Counterpart of the histogram methods in
-`arcadia_microscopy_tools_tpu/ops/threshold.py` (otsu, isodata, yen,
-triangle, minimum) plus the histogram mean of `ops/fused.py`. Every method
-takes exact counts and bin centers over the last axis - leading axes are a
-batch - and returns one threshold per histogram. The arithmetic runs in
-float64: counts times centers stay exact integers up to 2^53, so the
-cumulative sums are exact and ties between bins are exact ties (the first
-bin wins, as in the reference).
+Counterpart of `arcadia_microscopy_tools_tpu/ops/threshold.py` plus the
+histogram mean of `ops/fused.py`. Every `*_from_hist` method takes exact
+counts and bin centers over the last axis - leading axes are a batch - and
+returns one threshold per histogram. The arithmetic runs in float64: counts
+times centers stay exact integers up to 2^53, so the cumulative sums are
+exact and ties between bins are exact ties (the first bin wins, as in the
+reference). The image-level `threshold_*` functions take one threshold over
+all elements of their input, as the reference's do.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .filters import box_filter, gaussian_filter, median_filter, window_mean_std
+from .stats import histogram_float, histogram_int, integer_bin_count
 
 __all__ = [
     "otsu_from_hist",
@@ -21,6 +25,19 @@ __all__ = [
     "triangle_from_hist",
     "minimum_from_hist",
     "mean_from_hist",
+    "GLOBAL_METHODS",
+    "LOCAL_METHODS",
+    "apply_threshold",
+    "threshold_otsu",
+    "threshold_isodata",
+    "threshold_yen",
+    "threshold_li",
+    "threshold_mean",
+    "threshold_minimum",
+    "threshold_triangle",
+    "threshold_local",
+    "threshold_niblack",
+    "threshold_sauvola",
 ]
 
 _NEG_INF = float("-inf")
@@ -204,3 +221,169 @@ def mean_from_hist(counts: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Mean of the histogrammed values."""
     c, x = _as_f64(counts, centers)
     return (c * x).sum(-1) / c.sum(-1).clamp_min(1.0)
+
+
+# -- image-level global thresholds ----------------------------------------------------
+
+
+def _histogram_for(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One per-integer histogram for integer images, 256 bins over
+    [min, max] for float images."""
+    n = integer_bin_count(x.dtype)
+    if n is not None:
+        return histogram_int(x, n)
+    return histogram_float(x, 256)
+
+
+def threshold_otsu(x: torch.Tensor) -> torch.Tensor:
+    return otsu_from_hist(*_histogram_for(x))
+
+
+def threshold_isodata(x: torch.Tensor) -> torch.Tensor:
+    return isodata_from_hist(*_histogram_for(x))
+
+
+def threshold_yen(x: torch.Tensor) -> torch.Tensor:
+    return yen_from_hist(*_histogram_for(x))
+
+
+def threshold_triangle(x: torch.Tensor) -> torch.Tensor:
+    return triangle_from_hist(*_histogram_for(x))
+
+
+def threshold_minimum(x: torch.Tensor) -> torch.Tensor:
+    return minimum_from_hist(*_histogram_for(x))
+
+
+def threshold_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of all pixel values (skimage.filters.threshold_mean), float32."""
+    return x.to(torch.float32).mean()
+
+
+def threshold_li(x: torch.Tensor, tolerance_hint: float | None = None) -> torch.Tensor:
+    """Li's minimum cross-entropy threshold, skimage's fixed-point
+    iteration: from the image mean, split at t and recompute
+    t = (m_b - m_f) / (ln m_b - ln m_f) until the update is at most the
+    tolerance (half the smallest gap between distinct values, 0.5 when all
+    values are equal). float32 like the reference; the class sums are
+    accumulated in float64. One host read per iteration."""
+    vals = x.reshape(-1).to(torch.float32)
+    offset = vals.min()
+    vals = vals - offset  # non-negative, as skimage makes them
+    if tolerance_hint is not None:
+        tol = torch.tensor(tolerance_hint, dtype=torch.float32, device=x.device)
+    else:
+        d = torch.diff(torch.sort(vals).values)
+        min_gap = torch.where(d > 0, d, torch.inf).min() if d.numel() else vals.new_tensor(torch.inf)
+        tol = torch.where(torch.isfinite(min_gap), min_gap / 2.0, 0.5)
+    total = vals.to(torch.float64).sum()
+    n = vals.numel()
+
+    def step(t_curr: torch.Tensor) -> torch.Tensor:
+        fg = vals > t_curr
+        n_fg = fg.sum()
+        sum_fg = torch.where(fg, vals, 0.0).to(torch.float64).sum()
+        mean_fg = (sum_fg / n_fg.clamp_min(1)).to(torch.float32)
+        mean_bg = ((total - sum_fg) / (n - n_fg).clamp_min(1)).to(torch.float32)
+        denom = torch.log(mean_bg.clamp_min(1e-30)) - torch.log(mean_fg.clamp_min(1e-30))
+        return torch.where(denom.abs() > 1e-30, (mean_bg - mean_fg) / denom, t_curr)
+
+    t_curr = (total / n).to(torch.float32)
+    t_next = step(t_curr)
+    while bool((t_next - t_curr).abs() > tol):
+        t_curr, t_next = t_next, step(t_next)
+    return t_next + offset
+
+
+# -- local threshold images ------------------------------------------------------------
+
+
+def threshold_local(
+    x: torch.Tensor,
+    block_size: int = 3,
+    method: str = "gaussian",
+    offset: float = 0.0,
+    param=None,
+) -> torch.Tensor:
+    """Adaptive threshold image (skimage.filters.threshold_local): the
+    image filtered over a block_size window by "gaussian" (sigma =
+    (block_size - 1) / 6 unless `param`), "mean" or "median", minus
+    `offset`; boundary mode "reflect"."""
+    if block_size % 2 != 1:
+        raise ValueError(f"block_size must be odd, got {block_size}")
+    img = x.to(torch.float32)
+    if method == "gaussian":
+        sigma = param if param is not None else (block_size - 1) / 6.0
+        filtered = gaussian_filter(img, float(sigma), mode="reflect")
+    elif method == "mean":
+        filtered = box_filter(img, block_size, mode="reflect")
+    elif method == "median":
+        filtered = median_filter(img, block_size, mode="reflect")
+    else:
+        raise ValueError(f"Unsupported local threshold method: {method!r}")
+    return filtered - offset
+
+
+def threshold_niblack(x: torch.Tensor, window_size: int = 15, k: float = 0.2) -> torch.Tensor:
+    """Niblack threshold image: mean - k * std over the window."""
+    mean, std = window_mean_std(x.to(torch.float32), window_size)
+    return mean - k * std
+
+
+def _sauvola_r(dtype: torch.dtype) -> float:
+    """Dynamic range of the standard deviation: half the integer dtype's
+    range, 1 for floats (skimage's dtype limits (-1, 1))."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        return 1.0
+    info = torch.iinfo(dtype)
+    return 0.5 * (info.max - info.min)
+
+
+def threshold_sauvola(
+    x: torch.Tensor, window_size: int = 15, k: float = 0.2, r: float | None = None
+) -> torch.Tensor:
+    """Sauvola threshold image: mean * (1 + k * (std / r - 1))."""
+    if r is None:
+        r = _sauvola_r(x.dtype)
+    mean, std = window_mean_std(x.to(torch.float32), window_size)
+    return mean * (1.0 + k * ((std / r) - 1.0))
+
+
+GLOBAL_METHODS = {
+    "otsu": threshold_otsu,
+    "li": threshold_li,
+    "yen": threshold_yen,
+    "isodata": threshold_isodata,
+    "mean": threshold_mean,
+    "minimum": threshold_minimum,
+    "triangle": threshold_triangle,
+}
+
+LOCAL_METHODS = {
+    "local": threshold_local,
+    "niblack": threshold_niblack,
+    "sauvola": threshold_sauvola,
+}
+
+
+def apply_threshold(x: torch.Tensor, method: str = "otsu", **kwargs) -> torch.Tensor:
+    """Binarize an image with the named method: `x > threshold`, where a
+    global method gives one threshold and a local method a threshold image.
+    Empty and constant images give an all-False mask."""
+    if x.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    method_lower = method.lower()
+    if method_lower in GLOBAL_METHODS:
+        thresh = GLOBAL_METHODS[method_lower](x, **kwargs)
+    elif method_lower in LOCAL_METHODS:
+        thresh = LOCAL_METHODS[method_lower](x, **kwargs)
+    else:
+        supported = ", ".join(list(GLOBAL_METHODS) + list(LOCAL_METHODS))
+        raise ValueError(
+            f"Unsupported thresholding method: '{method}'. Supported methods: {supported}"
+        )
+    mask = x.to(torch.float32) > torch.as_tensor(thresh, device=x.device).to(torch.float32)
+    # constant images -> all False; float64 holds every uint16/float32 value
+    # exactly, and CUDA reduces few ops on uint16
+    xd = x.to(torch.float64)
+    return mask & (xd.amin() != xd.amax())

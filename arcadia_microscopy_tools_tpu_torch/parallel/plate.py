@@ -1,10 +1,10 @@
 """End-to-end plate pipeline on one device.
 
 Counterpart of `arcadia_microscopy_tools_tpu/parallel/plate.py`, classical
-branch: well images -> DoG / percentile rescale / histogram threshold ->
-connected components -> foreground compaction -> per-cell morphology and
-per-channel intensity, for a whole microplate. A batch of wells is one
-(B, C, H, W) tensor on the device.
+branch: well images -> DoG / percentile rescale / global threshold
+(optionally a binary opening) -> connected components -> foreground
+compaction -> per-cell morphology and per-channel intensity, for a whole
+microplate. A batch of wells is one (B, C, H, W) tensor on the device.
 
 The runner keeps the reference's host-side contract:
 - per-well failure isolation: a failed well yields None and a
@@ -37,11 +37,14 @@ import torch
 from ..core.channels import Channel
 from ..core.microplate import MicroplateLayout
 from ..exceptions import SegmentationWarning
+from ..ops.basic import rescale_by_percentile, subtract_background_dog
 from ..ops.compaction import compact_by_root
 from ..ops.filters import to_float
 from ..ops.fused import HIST_THRESHOLD_METHODS, fused_classical_mask
 from ..ops.labeling import component_roots
+from ..ops.morphology import binary_opening, disk
 from ..ops.regionprops import measure_compacted
+from ..ops.threshold import GLOBAL_METHODS
 
 logger = logging.getLogger(__name__)
 
@@ -81,9 +84,6 @@ _INTENSITY_STATS = [
 # wells per device dispatch when PlateRunConfig.batch_size is None
 DEFAULT_BATCH = 8
 
-# global thresholds of the reference that are not histogram methods
-_NON_HIST_THRESHOLDS = ("li",)
-
 
 @dataclass(frozen=True)
 class PlateRunConfig:
@@ -94,10 +94,11 @@ class PlateRunConfig:
     Attributes:
         seg_channel_index: Index of the channel used for segmentation.
         method: "classical" (the only method ported so far).
-        threshold_method: Histogram threshold for the classical path.
+        threshold_method: Global threshold for the classical path: a
+            histogram method or "li" ("li", like any opening, takes the
+            staged branch).
         low_sigma / high_sigma: DoG sigmas for background subtraction.
-        opening_radius: Binary opening radius for mask cleanup (only 0 is
-            ported so far).
+        opening_radius: Binary opening radius for mask cleanup (0 = none).
         remove_edge_cells: Drop cells touching image borders.
         max_cells: Per-well cell capacity (padded measurements).
         batch_size: Wells per device dispatch (None = DEFAULT_BATCH).
@@ -188,17 +189,7 @@ def _check_supported(config: PlateRunConfig) -> None:
         )
     if config.method != "classical":
         raise ValueError(f"Unknown segmentation method: {config.method!r}")
-    if config.opening_radius > 0:
-        raise NotImplementedError(
-            "opening_radius > 0 is not ported yet (ROADMAP.md queue 1, port leftovers: "
-            "binary opening on the plate path)"
-        )
-    if config.threshold_method in _NON_HIST_THRESHOLDS:
-        raise NotImplementedError(
-            f"threshold_method={config.threshold_method!r} is not ported yet (ROADMAP.md "
-            "queue 1, port leftovers: non-histogram thresholds on the plate path)"
-        )
-    if config.threshold_method not in HIST_THRESHOLD_METHODS:
+    if config.threshold_method not in GLOBAL_METHODS:
         raise ValueError(f"Unknown threshold method: {config.threshold_method!r}")
 
 
@@ -207,6 +198,22 @@ def foreground_capacity(config: PlateRunConfig, h: int, w: int) -> int:
     to the reference's 8192-slot reduction block, at most the image."""
     cap = max(1, int(h * w * config.fg_cap_fraction))
     return min(-(-cap // 8192) * 8192, h * w)
+
+
+def _staged_mask(seg_img: torch.Tensor, config: PlateRunConfig) -> torch.Tensor:
+    """One well's mask by separate stages, for the configurations the fused
+    histogram frontend does not cover (a non-histogram threshold, or a
+    binary opening): DoG background subtraction -> percentile rescale ->
+    uint16 quantisation -> image-level threshold -> optional opening."""
+    x = subtract_background_dog(seg_img, low_sigma=config.low_sigma, high_sigma=config.high_sigma)
+    x = rescale_by_percentile(x, (0.5, 99.9))
+    # quantise so that the integer-exact histogram thresholds apply; 16-bit
+    # quantisation is far below the noise level
+    q = (x * 65535.0).to(torch.uint16)
+    mask = q.to(torch.float32) > GLOBAL_METHODS[config.threshold_method](q)
+    if config.opening_radius > 0:
+        mask = binary_opening(mask, disk(config.opening_radius))
+    return mask
 
 
 def _build_well_program(
@@ -232,13 +239,16 @@ def _build_well_program(
         h, w = seg_img.shape[-2:]
         cap = foreground_capacity(config, h, w)
 
-        mask = fused_classical_mask(
-            seg_img,
-            low_sigma=config.low_sigma,
-            high_sigma=config.high_sigma,
-            percentile_range=(0.5, 99.9),
-            method=config.threshold_method,
-        )
+        if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
+            mask = fused_classical_mask(
+                seg_img,
+                low_sigma=config.low_sigma,
+                high_sigma=config.high_sigma,
+                percentile_range=(0.5, 99.9),
+                method=config.threshold_method,
+            )
+        else:  # per well: the percentiles and the threshold are per image
+            mask = torch.stack([_staged_mask(frame, config) for frame in seg_img])
         roots, converged = component_roots(mask, pair_cap=config.pair_cap)
         comp = compact_by_root(roots, cap)
         props, stats = measure_compacted(comp.seg, comp.idx, roots, stack, config.max_cells, w)

@@ -1,10 +1,11 @@
-"""Synthetic plate data for tests and the on-card smoke run."""
+"""Synthetic plate, tile and timelapse data for tests and the on-card smoke
+run."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["serpentine", "synthetic_wells"]
+__all__ = ["noise_tiles", "serpentine", "synthetic_timelapse", "synthetic_wells"]
 
 
 def synthetic_wells(
@@ -41,3 +42,26 @@ def serpentine(fill: np.ndarray) -> np.ndarray:
     for k, r in enumerate(range(1, 127, 2)):
         m[r, 127 if k % 2 == 0 else 0] = True
     return m
+
+
+def noise_tiles(n: int, h: int, seed: int = 0) -> np.ndarray:
+    """(n, h, h) uint16 tiles of uniform noise in [0, 4000): the input of
+    the repository's preprocessing benchmark (`bench.py`, BASELINE config
+    2), made from `seed` with numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, h, h)) * 4000).astype(np.uint16)
+
+
+def synthetic_timelapse(n_frames: int, h: int, blobs_per_frame: int = 120, seed: int = 0) -> np.ndarray:
+    """(n_frames, h, h) uint16 frames of the repository's timelapse
+    benchmark (`bench.py`, BASELINE config 3): noise N(400, 40) and 32x32
+    blobs of peak 2500 at random centres, made from `seed` with numpy."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(400, 40, (n_frames, h, h)).clip(0, None)
+    yy, xx = np.mgrid[0:32, 0:32]
+    blob = 2500 * np.exp(-((yy - 16) ** 2 + (xx - 16) ** 2) / 24.0)
+    for f in range(n_frames):
+        for _ in range(blobs_per_frame):
+            cy, cx = rng.integers(16, h - 16), rng.integers(16, h - 16)
+            base[f, cy - 16 : cy + 16, cx - 16 : cx + 16] += blob
+    return base.astype(np.uint16)

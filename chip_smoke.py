@@ -1,5 +1,5 @@
-"""On-card smoke run of the PyTorch port: the classical plate path and the
-deep segmentation path.
+"""On-card smoke run of the PyTorch port: the classical plate path, the
+deep segmentation path and the preprocessing `Pipeline`.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its lines:
 
 1. device - the card's name and `nvidia-smi` name / power limit;
-2. build - the five CUDA kernels of `csrc/` (four libraries), compiled with
+2. build - the six CUDA kernels of `csrc/` (five libraries), compiled with
    nvcc for sm_90a, one nvcc per source, all started together, with their
    ptxas reports;
 3. kernels against plain - each kernel against its plain PyTorch version on
@@ -18,6 +18,10 @@ Phases, each printing its lines:
    prologue, ReLU, accum, moments) combinations of a 8 x 2048^2 forward plus
    a ragged 1000 x 1504 and a 3-row image, within one bf16 step; the
    GroupNorm moments at 8 x 2048^2 x 32 and on ragged shapes, within 1e-5;
+   the rank selection bit-exact (int32 views) on the 8 x 2048^2 timelapse
+   stack at window 21, windows 11, 15 and 22 (two ranks in one launch), a
+   window of 255 that reads its keys from device memory, a ragged batch of
+   3, signed zeros, rank 0 and window^2 - 1, and all five pad modes;
 4. plate path - 8 synthetic 2048^2 4-channel wells through
    `PlateRunner.run` with its kernel launch counts, and well 0 held against
    the plain path on the CPU;
@@ -26,11 +30,19 @@ Phases, each printing its lines:
    launch counts of all five kernels; the QC diffusion kernel bit-exact
    against its plain version on that run's label images, a ragged crop and
    a remainder pass; one 512^2 image on the card against the CPU plain path;
-6. timing - plate wells/s and per-stage ms; segmentation images/s split
+6. preprocessing path - two `Pipeline(..., parallel=True)` configurations
+   on 8 2048^2 uint16 frames from host memory: Gaussian -> 3x3 median ->
+   rolling ball on noise tiles, and a 21x21 median local threshold ->
+   binary opening -> label on a blob timelapse, which launches the rank
+   kernel once per frame; launch counts; frame 0 of the first and a 640^2
+   crop of frame 0 of the second held against the CPU path;
+7. timing - plate wells/s and per-stage ms; segmentation images/s split
    into host preparation, forward, mask reconstruction and, within it, the
-   QC diffusion; each kernel's time beside its bound, its plain version's
-   time and, for the conv, cuDNN's bf16 `F.conv2d` on the same shapes;
-7. the `kernels` JSON line, then the card's name and power limit, then the
+   QC diffusion; preprocessing images/s and ms per operation; each
+   kernel's time beside its bound, its plain version's time and, for the
+   conv, cuDNN's bf16 `F.conv2d` and, for the rank selection,
+   `torch.kthvalue` over the unfolded windows, on the same shapes;
+8. the `kernels` JSON line, then the card's name and power limit, then the
    final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -38,8 +50,9 @@ script exits non-zero at once. `--cpu-rehearsal` runs every phase at a
 tiny size on the CPU with the plain versions (a check of the script's own
 control flow); it prints no device result and exits non-zero.
 `--profile DIR` adds a `torch.profiler` trace of one forward and one mask
-reconstruction of the segmentation batch: device time by kernel and the
-card's idle share, printed and written to DIR/profile_segment.txt.
+reconstruction of the segmentation batch and one batch of each
+preprocessing configuration: device time by kernel and the card's idle
+share, printed and written to DIR/profile_segment.txt.
 """
 
 from __future__ import annotations
@@ -59,7 +72,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
-KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse"]
+KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select"]
 
 
 def log(msg: str) -> None:
@@ -158,26 +171,87 @@ def port_modules() -> SimpleNamespace:
         unet,
         weights,
     )
-    from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, compaction, fused, labeling
-    from arcadia_microscopy_tools_tpu_torch.ops import regionprops
+    from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, compaction, filters, fused
+    from arcadia_microscopy_tools_tpu_torch.ops import labeling, morphology, rank_cuda
+    from arcadia_microscopy_tools_tpu_torch.ops import regionprops, threshold
     from arcadia_microscopy_tools_tpu_torch.parallel import plate
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
         _build, testing, microplate, conv_cuda, flows, flows_cuda, gn_cuda, unet, weights,
-        cc_cuda, compaction, fused, labeling, regionprops, plate,
+        cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
+        threshold, plate,
     )}, pkg=pkg)
 
 
 def reset_all_counts(m) -> None:
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda):
         mod.reset_launch_counts()
 
 
 def all_counts(m) -> dict[str, int]:
     out = {}
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda):
         out.update(mod.launch_counts)
     return out
+
+
+def median_local_mask(img: torch.Tensor) -> torch.Tensor:
+    """The timelapse configuration's mask: pixels above their 21x21 median
+    plus 150 (`threshold_local(method="median", offset=-150)`, the
+    repository's timelapse benchmark recipe at the largest window the TPU
+    kernel served)."""
+    from arcadia_microscopy_tools_tpu_torch.ops.threshold import threshold_local
+
+    return img.to(torch.float32) > threshold_local(img, 21, "median", -150.0)
+
+
+def preprocessing_pipelines(m, dev) -> dict:
+    """The two preprocessing configurations as `Pipeline`s on `dev`."""
+    op, f = m.pkg.ImageOperation, m.filters
+    return {
+        "denoise": m.pkg.Pipeline([
+            op(f.gaussian_filter, 2.0),
+            op(f.median_filter, 3),
+            op(f.subtract_background_rolling_ball, radius=25),
+        ], parallel=True, device=dev),
+        "local threshold": m.pkg.Pipeline([
+            op(median_local_mask),
+            op(m.morphology.binary_opening, m.morphology.disk(2)),
+            op(m.labeling.label),
+        ], parallel=True, device=dev),
+    }
+
+
+def rank_cases(m, stack: torch.Tensor, rehearsal: bool) -> list:
+    """(name, images, window, ranks, mode, fn) cases of the rank kernel
+    against its plain version: fn None calls `rank_select`, else a filter
+    entry point on the card."""
+    dev = stack.device
+    g = torch.Generator(device=dev).manual_seed(300)
+    small = (lambda *shape: shape) if not rehearsal else (lambda n, h, w: (n, h // 8, w // 8))
+    noise = torch.randn(small(2, 512, 640), generator=g, device=dev) * 100
+    zeros = torch.tensor([-0.0, 0.0, 1.0], device=dev)[
+        torch.randint(0, 3, small(1, 96, 128), generator=g, device=dev)]
+    ragged = torch.randn(small(3, 333, 517), generator=g, device=dev)
+    wide = torch.randn(small(1, 300, 340), generator=g, device=dev)
+    modes = stack[:1, :200, :260]
+    f = m.filters
+    cases = [
+        ("timelapse stack", stack, 21, (220,), "reflect", None),
+        ("window 11, negative values", noise, 11, (60,), "reflect", None),
+        ("window 15, negative values", noise, 15, (112,), "reflect", None),
+        ("window 22, two ranks", noise, 22, (241, 242), "reflect", None),
+        ("window 255, keys from device memory", wide, 255, (32512,), "reflect", None),
+        ("ragged batch of 3", ragged, 15, (112,), "reflect", None),
+        ("signed zeros", zeros, 11, (60,), "reflect", None),
+        ("signed zeros", zeros, 21, (220,), "reflect", None),
+        ("rank_filter rank 0", noise[:1], 15, (0,), "reflect",
+         lambda x: f.rank_filter(x, 0, 15)[None]),
+        ("rank_filter rank 224", noise[:1], 15, (224,), "reflect",
+         lambda x: f.rank_filter(x, 224, 15)[None]),
+    ]
+    cases += [(f"mode {mode}", modes, 21, (220,), mode, None) for mode in f.PAD_MODES]
+    return cases
 
 
 def forward_conv_shapes(b: int, size: int, nb=(32, 64, 128, 256)):
@@ -252,7 +326,8 @@ def main(argv: list[str] | None = None) -> int:
         action="store_true",
         help="tiny sizes on the CPU with the plain versions; prints no device result",
     )
-    parser.add_argument("--profile", metavar="DIR", help="also trace the segmentation batch")
+    parser.add_argument("--profile", metavar="DIR",
+                        help="also trace the segmentation batch and the preprocessing batches")
     args = parser.parse_args(argv)
     rehearsal = args.cpu_rehearsal
 
@@ -270,6 +345,7 @@ def main(argv: list[str] | None = None) -> int:
     n_wells, n_ch = 8, 4
     size, blobs, ragged = (2048, 300, (1000, 1500)) if not rehearsal else (256, 10, (200, 300))
     seg_size, seg_blobs, check_size = (2048, 300, 512) if not rehearsal else (128, 6, 64)
+    pre_size, pre_crop, pre_blobs = (2048, 640, 120) if not rehearsal else (96, 64, 4)
     dev = torch.device("cpu" if rehearsal else "cuda")
     sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
     t_start = time.perf_counter()
@@ -370,6 +446,25 @@ def main(argv: list[str] | None = None) -> int:
         if rel > 1e-5:
             raise RuntimeError("lane_moments differs from its plain version beyond 1e-5")
     sync()
+
+    # kernel 3 on the timelapse configuration's stack and on edge cases
+    lapse = m.testing.synthetic_timelapse(n_wells, pre_size, pre_blobs, seed=0)
+    lapse_f = torch.from_numpy(lapse).to(dev).to(torch.float32)
+    rank_cases_run = rank_cases(m, lapse_f, rehearsal)
+    max_err["rank_select"] = 0.0
+    for name, x, window, ranks, mode, fn in rank_cases_run:
+        got = m.rank_cuda.rank_select(x, window, ranks, mode) if fn is None else fn(x)
+        want = m.rank_cuda.rank_select_plain(x, window, ranks, mode)
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().nan_to_num(0.0).max())
+        max_err["rank_select"] = max(max_err["rank_select"], err)
+        say(f"[kernels] rank_select {name} {tuple(x.shape)} window {window} ranks "
+            f"{tuple(ranks)} mode {mode}: {differ} values differ in any bit")
+        if differ:
+            raise RuntimeError(f"rank_select differs from its plain version on {name}")
+    sync()
+    say("[kernels] rank_select equals its plain version bit for bit (int32 views)")
+    del rank_cases_run
 
     # -- 4. plate path --------------------------------------------------------------
     config = m.plate.PlateRunConfig(max_cells=1024, min_size=20)
@@ -481,7 +576,8 @@ def main(argv: list[str] | None = None) -> int:
     say(f"[segment] cells per image: {cells} ({seg_blobs} blobs per image)")
     if min(cells) <= 0:
         raise RuntimeError("an image has no cells")
-    if not rehearsal and min(seg_launches.values()) <= 0:
+    seg_kernels = ("local_cc", "local_resweep", "conv3x3_fused", "lane_moments", "diffuse")
+    if not rehearsal and min(seg_launches[k] for k in seg_kernels) <= 0:
         raise RuntimeError(f"the segmentation path did not launch every kernel: {seg_launches}")
 
     # the run's intermediates: network output, the QC's labels and sources
@@ -537,7 +633,66 @@ def main(argv: list[str] | None = None) -> int:
     if agree < 0.99 or abs(int(lab_card.max()) - int(lab_cpu.max())) > 1 or lab_cpu.max() <= 0:
         raise RuntimeError("labels on the card differ from the CPU beyond tolerance")
 
-    # -- 6. timing ------------------------------------------------------------------
+    # -- 6. preprocessing path -------------------------------------------------------
+    tiles = m.testing.noise_tiles(n_wells, pre_size, seed=0)
+    pipes = preprocessing_pipelines(m, dev)
+    inputs = {"denoise": tiles, "local threshold": lapse}
+    pre_out, pre_launches = {}, {}
+    for name, pipe in pipes.items():
+        reset_all_counts(m)
+        t0 = time.perf_counter()
+        pre_out[name] = pipe(inputs[name])
+        sync()
+        first_s = time.perf_counter() - t0
+        pre_launches[name] = all_counts(m)
+        res = pre_out[name]
+        ops = ", ".join(op.func.__name__ for op in pipe.operations)
+        say(f"[preprocess] {name}: Pipeline([{ops}], parallel=True) on {n_wells} frames of "
+            f"{pre_size}^2 uint16 in {first_s:.3f} s (first run, from host memory); output "
+            f"{res.dtype} {tuple(res.shape)}; launches {pre_launches[name]}")
+        if res.shape != inputs[name].shape:
+            raise RuntimeError(f"{name}: output shape {res.shape}")
+    den = pre_out["denoise"]
+    if den.dtype != np.float64 or not np.isfinite(den).all() or den.min() < 0:
+        raise RuntimeError("denoise output is not finite, non-negative float64")
+    lab = pre_out["local threshold"]
+    cells = [int(f.max()) for f in lab]
+    say(f"[preprocess] local threshold: labels per frame {cells} ({pre_blobs} blobs per "
+        f"frame, some overlapping)")
+    if lab.dtype != np.int32 or not all(pre_blobs // 3 <= c <= pre_blobs for c in cells):
+        raise RuntimeError(f"implausible timelapse labels {lab.dtype} {cells}")
+    if not rehearsal and pre_launches["local threshold"]["rank_select"] != n_wells:
+        raise RuntimeError(f"the 21x21 median did not launch the rank kernel once per frame: "
+                           f"{pre_launches['local threshold']}")
+
+    # frame 0 against the CPU path: the denoise chain is float (the Gaussian
+    # convolutions sum in another order on the card); a median and a grey
+    # opening are 1-Lipschitz in the max norm, so the output may differ by
+    # at most twice the Gaussian stage's difference plus a few float32 ulps
+    # at the data's magnitude (< 4096: ulp 4.9e-4)
+    cpu_pipes = preprocessing_pipelines(m, "cpu")
+    den_cpu = cpu_pipes["denoise"](tiles[:1])
+    g_card = m.filters.gaussian_filter(torch.from_numpy(tiles[:1]).to(dev), 2.0).cpu()
+    g_cpu = m.filters.gaussian_filter(torch.from_numpy(tiles[:1]), 2.0)
+    g_err = float((g_card - g_cpu).abs().max())
+    d_err = float(np.abs(den[:1] - den_cpu).max())
+    limit = 2 * g_err + 4 * 4.9e-4
+    say(f"[check] denoise frame 0 card vs CPU: max abs {d_err:.4g} (limit {limit:.4g} = twice "
+        f"the Gaussian stage's {g_err:.4g} + 4 ulps at 4096)")
+    if d_err > limit:
+        raise RuntimeError("denoise on the card differs from the CPU beyond tolerance")
+    # the timelapse chain is exact after the float32 cast (a median of
+    # integers plus 150), so labels must be equal; on a crop, because the
+    # plain 21x21 selection takes ~30 s per 2048^2 frame on the host
+    crop = lapse[:1, :pre_crop, :pre_crop]
+    lab_card = pipes["local threshold"](crop)
+    lab_cpu = cpu_pipes["local threshold"](crop)
+    say(f"[check] local threshold {pre_crop}^2 crop of frame 0 card vs CPU: "
+        f"{int((lab_card != lab_cpu).sum())} labels differ; {int(lab_cpu.max())} cells")
+    if not np.array_equal(lab_card, lab_cpu) or lab_cpu.max() <= 0:
+        raise RuntimeError("timelapse labels on the card differ from the CPU")
+
+    # -- 7. timing ------------------------------------------------------------------
     reps = 5 if not rehearsal else 1
     program_ms = time_host(lambda: program(staged), reps, sync)
     say(f"[time] plate device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
@@ -573,6 +728,24 @@ def main(argv: list[str] | None = None) -> int:
         f"{json.dumps({k: round(v, 3) for k, v in parts.items()})} (qc diffusion is inside "
         f"compute_masks)")
 
+    # preprocessing: each configuration from host memory (NumPy in, NumPy
+    # out, as users call it) and on the staged stack; ms per operation
+    staged_pre = {name: torch.from_numpy(inputs[name]).to(dev) for name in pipes}
+    for name, pipe in pipes.items():
+        host_ms = time_host(lambda: pipe(inputs[name]), seg_reps, sync)
+        dev_ms = time_host(lambda: pipe(staged_pre[name]), seg_reps, sync)
+        frames = list(staged_pre[name])
+        op_ms = {}
+        for op in pipe.operations:
+            ins = frames
+            op_ms[op.func.__name__] = round(time_host(lambda: [op(x) for x in ins], seg_reps, sync), 3)
+            frames = [op(x) for x in frames]
+        say(f"[time] preprocess {name}: {host_ms:.2f} ms per batch of {n_wells} {pre_size}^2 "
+            f"frames from host memory ({n_wells * 1e3 / host_ms:.3f} images/s); {dev_ms:.2f} ms "
+            f"on the staged stack ({n_wells * 1e3 / dev_ms:.3f} images/s); ms per operation "
+            f"over the batch: {json.dumps(op_ms)} (host clock + synchronize)")
+        del frames
+
     if args.profile and not rehearsal:
         with torch.inference_mode():
             profile_windows({
@@ -580,6 +753,9 @@ def main(argv: list[str] | None = None) -> int:
                 "compute_masks": lambda: flows.compute_masks(
                     out, flow_threshold=float(params["flow_threshold"]), niter=200,
                     max_cells=model.max_cells, min_size=model.min_size),
+                "preprocess denoise": lambda: pipes["denoise"](staged_pre["denoise"]),
+                "preprocess local threshold": lambda: pipes["local threshold"](
+                    staged_pre["local threshold"]),
             }, args.profile)
 
     kernels = []
@@ -678,15 +854,55 @@ def main(argv: list[str] | None = None) -> int:
     say(f"[time] diffuse {tuple(qc_lbl.shape)} x 128 iterations: {ms:.4f} ms; bound "
         f"{max(b_ms, o_ms):.4f} ms (operations: 6 per pixel and iteration; bytes {b_ms:.4f}); "
         f"plain {plain_ms:.3f} ms; {flows_cuda.DIFFUSE_HALO} iterations per launch")
+    diffuse_row = ("diffuse", "models/flows_pallas.py:78", seg_launches["diffuse"], ms, plain_ms,
+                   b_ms, o_ms, None, "diffuse.cu")
+
+    # rank selection at the timelapse configuration's calls: 8 launches of
+    # one 2048^2 frame, window 21, rank 220. The bound counts what the
+    # function needs, an 8-bit radix select per pixel and rank (4 digit
+    # passes of window^2 bin increments and a 256-bin scan), and the padded
+    # input read once and the output written once; the kernel's own
+    # bisection (32 rounds of window^2 compare-and-add steps, 2 operations
+    # each) is printed beside it as the algorithm's count
+    win, rk = 21, (220,)
+    frames_f = list(lapse_f[:, None])
+    ms, plain_ms = timed(lambda: [m.rank_cuda.rank_select(x, win, rk) for x in frames_f],
+                         lambda: [m.rank_cuda.rank_select_plain(x, win, rk) for x in frames_f],
+                         kreps=3)
+    batched_ms = ms if rehearsal else time_cuda(lambda: m.rank_cuda.rank_select(lapse_f, win, rk),
+                                                reps=3)
+    px_r = lapse_f.numel()
+    b_ms = (n_wells * (pre_size + 2 * (win // 2)) ** 2 + px_r) * 4 / HBM_BYTES_PER_S * 1e3
+    o_ms = 4 * (win * win + 256) * px_r * len(rk) / NON_TENSOR_OPS_PER_S * 1e3
+    bisect_ms = 32 * win * win * 2 * px_r * len(rk) / NON_TENSOR_OPS_PER_S * 1e3
+
+    def kth_all():
+        for x in frames_f:
+            pad = m.filters._pad_last2(x[0], win // 2, win // 2, "reflect")
+            views = pad.unfold(0, win, 1).unfold(1, win, 1).reshape(pre_size, pre_size, -1)
+            torch.kthvalue(views, rk[0] + 1, dim=-1)
+
+    lib_ms = plain_ms if rehearsal else time_cuda(kth_all, reps=1, warmup=1)
+    rank_launches = pre_launches["local threshold"]["rank_select"]
+    say(f"[time] rank_select {n_wells} x {pre_size}^2, window {win}, one launch per frame: "
+        f"{ms:.4f} ms ({batched_ms:.4f} ms as one batched launch); bound {max(b_ms, o_ms):.4f} ms "
+        f"(operations {o_ms:.4f}: radix select, 4 x (window^2 + 256) per pixel; bytes "
+        f"{b_ms:.4f}); the bisection's own count {bisect_ms:.4f} ms (32 x window^2 x 2 per "
+        f"pixel); plain {plain_ms:.3f} ms; torch.kthvalue "
+        f"over the unfolded windows, one call per frame, {lib_ms:.3f} ms; launches on the "
+        f"timelapse path {rank_launches}")
+    rank_row = ("rank_select", "ops/rank_pallas.py:67", rank_launches, ms, plain_ms, b_ms, o_ms,
+                lib_ms, "rank_select.cu")
+    del frames_f
 
     # the conv's bound is the sum over its calls of each call's max(bytes, operations)
     entry("conv3x3_fused", "models/conv_pallas.py:129", seg_launches["conv3x3_fused"], tot["ms"],
           tot["plain"], tot["bytes"], tot["ops"], tot["lib"], "conv3x3_fused.cu", tot["bound"])
     entry(*gn_row)
-    entry("diffuse", "models/flows_pallas.py:78", seg_launches["diffuse"], ms, plain_ms, b_ms, o_ms,
-          None, "diffuse.cu")
+    entry(*diffuse_row)
+    entry(*rank_row)
 
-    # -- 7. result ------------------------------------------------------------------
+    # -- 8. result ------------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

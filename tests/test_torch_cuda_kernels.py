@@ -14,7 +14,7 @@ import torch
 from arcadia_microscopy_tools_tpu_torch import SegmentationModel
 from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, flows, flows_cuda, gn_cuda
 from arcadia_microscopy_tools_tpu_torch.models.weights import DEFAULT_WEIGHTS
-from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, labeling
+from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, filters, labeling, rank_cuda
 from arcadia_microscopy_tools_tpu_torch.ops.fused import fused_classical_mask
 from arcadia_microscopy_tools_tpu_torch.testing import serpentine, synthetic_wells
 
@@ -142,3 +142,33 @@ def test_segmentation_on_the_card_matches_the_cpu(cuda_device):
     card = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device=cuda_device).segment(img)
     cpu = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device="cpu").segment(img)
     assert abs(int(card.max()) - int(cpu.max())) <= 1 and (card == cpu).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "window, ranks, shape",
+    [(11, (60,), (2, 100, 130)), (15, (0, 224), (3, 37, 53)), (21, (220,), (1, 256, 300)),
+     (22, (241, 242), (2, 64, 80)), (255, (32512,), (1, 40, 50))],
+)
+def test_rank_select_matches_plain_bit_for_bit(cuda_device, window, ranks, shape):
+    """Signed zeros, ties and negative values; window 255 reads its keys
+    from device memory."""
+    g = torch.Generator(device=cuda_device).manual_seed(window)
+    x = torch.round(torch.randn(shape, generator=g, device=cuda_device) * 2)
+    x = torch.where(x == 0, torch.where(torch.rand(shape, generator=g, device=cuda_device) < 0.5,
+                                        -0.0, 0.0), x)
+    for mode in filters.PAD_MODES:
+        got = rank_cuda.rank_select(x, window, ranks, mode)
+        want = rank_cuda.rank_select_plain(x, window, ranks, mode)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), mode
+
+
+@pytest.mark.gpu
+def test_median_filter_launches_the_rank_kernel(cuda_device):
+    rank_cuda.reset_launch_counts()
+    x = torch.randn((2, 64, 64), device=cuda_device)
+    out = filters.median_filter(x, 12)
+    assert rank_cuda.launch_counts == {"rank_select": 1}
+    assert torch.equal(out.cpu(), filters.median_filter(x.cpu(), 12))
+    filters.median_filter(x, 9)  # the stacked-view sort: no launch
+    assert rank_cuda.launch_counts == {"rank_select": 1}

@@ -182,5 +182,11 @@ def test_unknown_method_raises(images):
 
 
 def test_other_boundary_modes_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        filters.gaussian_filter(torch.zeros((8, 8)), 1.0, mode="reflect")
+    """Every scipy boundary mode is ported now (each is held against the
+    reference in test_torch_filters_more); only an unknown mode raises."""
+    x = np.random.default_rng(0).random((8, 8)).astype(np.float32)
+    ours = filters.gaussian_filter(torch.from_numpy(x), 1.0, mode="reflect").numpy()
+    ref = np.asarray(jax_filters.gaussian_filter(jnp.asarray(x), 1.0, mode="reflect"))
+    assert np.abs(ours - ref).max() <= 1e-6
+    with pytest.raises(ValueError, match="boundary mode"):
+        filters.gaussian_filter(torch.zeros((8, 8)), 1.0, mode="periodic")

@@ -19,6 +19,15 @@ for name in ("jax", "jaxlib", "orbax", "arcadia_microscopy_tools_tpu"):
 import arcadia_microscopy_tools_tpu_torch
 import arcadia_microscopy_tools_tpu_torch.ops.cc_cuda
 import arcadia_microscopy_tools_tpu_torch.ops.segment_reduce
+import arcadia_microscopy_tools_tpu_torch.ops.basic
+import arcadia_microscopy_tools_tpu_torch.ops.filters
+import arcadia_microscopy_tools_tpu_torch.ops.morphology
+import arcadia_microscopy_tools_tpu_torch.ops.pipeline
+import arcadia_microscopy_tools_tpu_torch.ops.rank_cuda
+import arcadia_microscopy_tools_tpu_torch.ops.stats
+import arcadia_microscopy_tools_tpu_torch.ops.threshold
+import arcadia_microscopy_tools_tpu_torch.operations
+import arcadia_microscopy_tools_tpu_torch.pipeline
 import arcadia_microscopy_tools_tpu_torch._build
 import arcadia_microscopy_tools_tpu_torch.model
 import arcadia_microscopy_tools_tpu_torch.models.segmentation

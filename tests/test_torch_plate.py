@@ -66,11 +66,11 @@ def _ties(wells_np):
     return [_exact_moment_ties(r.numpy(), CONFIG.max_cells) for r in roots]
 
 
-def test_well_program_matches_jax(wells):
-    """2 wells x 2 channels x 256x384: health equal, integer columns exact,
-    float columns within rtol 1e-5 + atol 1e-4."""
-    ours_packed, ours_health = plate._build_well_program(CONFIG, 2)(torch.from_numpy(wells))
-    jax_config = jax_plate.PlateRunConfig(**dataclasses.asdict(CONFIG))
+def _assert_programs_agree(wells, config, ties):
+    """Health equal, integer columns exact, float columns within rtol 1e-5 +
+    atol 1e-4, orientation as in `_orientation_check`."""
+    ours_packed, ours_health = plate._build_well_program(config, 2)(torch.from_numpy(wells))
+    jax_config = jax_plate.PlateRunConfig(**dataclasses.asdict(config))
     program = jax.jit(jax.vmap(jax_plate._build_well_program(jax_config, 2)))
     ref_packed, ref_health = (np.asarray(x) for x in program(jnp.asarray(wells)))
 
@@ -88,8 +88,30 @@ def test_well_program_matches_jax(wells):
     np.testing.assert_array_equal(np.isfinite(ours_f), finite)
     np.testing.assert_allclose(ours_f[finite], ref_f[finite], rtol=RTOL, atol=ATOL)
     ecc = ref_packed[..., cols.index("eccentricity")]
-    for k, tie in enumerate(_ties(wells)):
+    for k, tie in enumerate(ties):
         _orientation_check(ours_packed[k, :, ori], ref_packed[k, :, ori], ecc[k], tie)
+
+
+def test_well_program_matches_jax(wells):
+    """2 wells x 2 channels x 256x384 through the fused histogram branch."""
+    _assert_programs_agree(wells, CONFIG, _ties(wells))
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"threshold_method": "li"}, {"opening_radius": 2}, {"threshold_method": "yen", "opening_radius": 1}],
+)
+def test_staged_branch_matches_jax(wells, kwargs):
+    """A non-histogram threshold or a binary opening takes the staged branch
+    (DoG -> percentile rescale -> uint16 quantisation -> image-level
+    threshold -> opening), per well, as the reference's does."""
+    config = dataclasses.replace(CONFIG, **kwargs)
+    ties = []
+    for img in wells[:, 0]:
+        seg = plate.to_float(torch.from_numpy(img))
+        roots, _ = component_roots(plate._staged_mask(seg, config), pair_cap=config.pair_cap)
+        ties.append(_exact_moment_ties(roots.numpy(), config.max_cells))
+    _assert_programs_agree(wells, config, ties)
 
 
 def test_plate_runner_tables_match_jax(wells):
@@ -188,12 +210,18 @@ def test_default_device_is_cuda_or_raises():
     "kwargs, error",
     [
         ({"method": "unet"}, NotImplementedError),
-        ({"opening_radius": 2}, NotImplementedError),
-        ({"threshold_method": "li"}, NotImplementedError),
+        ({"threshold_method": "bogus", "opening_radius": 2}, ValueError),
+        ({"threshold_method": "Li"}, ValueError),
         ({"threshold_method": "bogus"}, ValueError),
         ({"method": "bogus"}, ValueError),
     ],
 )
 def test_unported_configurations_raise(kwargs, error):
+    """Only the plate runner's unet branch is left to port; unknown names
+    raise as in the reference (threshold names are exact there)."""
     with pytest.raises(error):
         plate.PlateRunner(plate.PlateRunConfig(**kwargs), device="cpu")
+    for opening in (0, 2):  # every global threshold runs, with or without an opening
+        for method in plate.GLOBAL_METHODS:
+            plate.PlateRunner(plate.PlateRunConfig(threshold_method=method, opening_radius=opening),
+                              device="cpu")
