@@ -127,7 +127,7 @@ def _library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.amt_conv3x3_fused.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.amt_conv3x3_fused.restype = i
-    lib.amt_conv3x3_tiles.argtypes = [i, i]
+    lib.amt_conv3x3_tiles.argtypes = [i, i, i]
     lib.amt_conv3x3_tiles.restype = i
     return lib
 
@@ -199,7 +199,7 @@ def conv3x3_fused(
         _check_cuda_operand("accum", accum, (b, h, wd, co), bf, dev)
     lib = _library()
     y = torch.empty((b, h, wd, co), dtype=bf, device=dev)
-    tiles = lib.amt_conv3x3_tiles(h, wd)
+    tiles = lib.amt_conv3x3_tiles(h, wd, co)
     part = torch.empty((b, tiles, 2, co), dtype=torch.float32, device=dev) if emit_moments else None
     if x.numel():
         with torch.cuda.device(dev):

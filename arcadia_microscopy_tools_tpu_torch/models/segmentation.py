@@ -32,7 +32,7 @@ from ..typing import Float64Array, Int64Array
 from ..utils import get_tqdm
 from .flows import compute_masks
 from .unet import UNet, UNetConfig
-from .weights import load_weights
+from .weights import DEFAULT_WEIGHTS, load_weights
 
 __all__ = ["SegmentationModel", "SegmentationParams", "find_best_available_device"]
 
@@ -73,6 +73,7 @@ class SegmentationModel:
         device: torch device; None means the CUDA card (raises without one).
         checkpoint_path: `.npz` of the JAX parameter tree (models/weights.py);
             otherwise seeded weights (identical pipeline, untrained network).
+            A directory (the JAX package's orbax checkpoint) is a ValueError.
         seed: seed of the torch generator for seeded weights.
     """
 
@@ -90,6 +91,14 @@ class SegmentationModel:
     _config: UNetConfig = field(default_factory=UNetConfig, init=False, repr=False)
 
     def __post_init__(self) -> None:
+        if self.checkpoint_path is not None and Path(self.checkpoint_path).is_dir():
+            raise ValueError(
+                f"checkpoint_path {self.checkpoint_path} is a directory (the JAX package's "
+                "orbax checkpoint); the port reads an .npz of the flattened parameter tree, "
+                f"such as {DEFAULT_WEIGHTS.name} beside models/weights.py. Export one where "
+                "orbax and the JAX package are installed with "
+                "np.savez(path, **flatten_tree(load_checkpoint(directory)))"
+            )
         self.device = resolve_device(self.device)
 
     def _resolve_and_validate_parameters(

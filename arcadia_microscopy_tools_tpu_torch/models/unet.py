@@ -111,8 +111,11 @@ class UNet(nn.Module):
     Seeded initialisation draws from an explicit `torch.Generator` with the
     JAX package's distributions (He-normal convs and dense layers, unit GN
     scales, zero biases); it does not reproduce the numbers `init_unet`
-    draws from a JAX key. Trained or JAX-initialised weights come in through
-    `models.weights`.
+    draws from a JAX key, since `jax.random` and `torch.Generator` differ by
+    design. What it does reproduce, for the same seed, is the leaf names,
+    the shapes (after `weights.state_dict_from_tree`) and each large weight
+    leaf's spread within 10%, which the tests pin. Trained or
+    JAX-initialised weights come in through `models.weights`.
     """
 
     def __init__(self, config: UNetConfig | None = None, generator: torch.Generator | None = None):

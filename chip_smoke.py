@@ -16,12 +16,17 @@ Phases, each printing its lines:
    that hits the sweep cap, a ragged 1000 x 1500 mask and all-background /
    all-foreground masks; the fused 3x3 conv on each of the 16 (C, Co, level,
    prologue, ReLU, accum, moments) combinations of a 8 x 2048^2 forward plus
-   a ragged 1000 x 1504 and a 3-row image, within one bf16 step; the
+   a ragged 1000 x 1504 and a 3-row image, within one bf16 step, and at the
+   tiling's edges (W not a multiple of the 64-pixel tile, H = 1, B = 1 with
+   C = Co = 256, 256 -> 128), each with and without prologue and accum; two
+   launches on the same inputs give the same bits of y and the moments; the
    GroupNorm moments at 8 x 2048^2 x 32 and on ragged shapes, within 1e-5;
    the rank selection bit-exact (int32 views) on the 8 x 2048^2 timelapse
    stack at window 21, windows 11, 15 and 22 (two ranks in one launch), a
    window of 255 that reads its keys from device memory, a ragged batch of
-   3, signed zeros, rank 0 and window^2 - 1, and all five pad modes;
+   3, signed zeros, rank 0 and window^2 - 1, all five pad modes, all-equal
+   windows, +-inf and both NaN signs, windows 1 and 3, and the windows on
+   each side of every branch switch of the kernel (35/36, 74/75, 225/226);
 4. plate path - 8 synthetic 2048^2 4-channel wells through
    `PlateRunner.run` with its kernel launch counts, and well 0 held against
    the plain path on the CPU;
@@ -49,6 +54,9 @@ Any failure exits non-zero before the final line. Without a CUDA device the
 script exits non-zero at once. `--cpu-rehearsal` runs every phase at a
 tiny size on the CPU with the plain versions (a check of the script's own
 control flow); it prints no device result and exits non-zero.
+`--compare-with FILE` reads the output of an earlier run (the parent
+commit's `chip_smoke.py`, run in the same chip call) and prints each
+kernel's earlier time beside this run's, and each conv call's.
 `--profile DIR` adds a `torch.profiler` trace of one forward and one mask
 reconstruction of the segmentation batch and one batch of each
 preprocessing configuration: device time by kernel and the card's idle
@@ -60,9 +68,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -72,6 +82,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
+# the branches of csrc/rank_select.cu by the last window each serves; larger
+# windows bisect on keys read from device memory
+RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
+                 (225, "bisection on staged keys"))
 KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select"]
 
 
@@ -122,8 +136,6 @@ def profile_windows(windows: dict, out_dir: str) -> None:
     milliseconds by kernel, the window's wall time and the card's idle share
     (1 - summed kernel time / wall time; kernels of one stream do not
     overlap), and write the full tables to out_dir/profile_segment.txt."""
-    from pathlib import Path
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -251,7 +263,34 @@ def rank_cases(m, stack: torch.Tensor, rehearsal: bool) -> list:
          lambda x: f.rank_filter(x, 224, 15)[None]),
     ]
     cases += [(f"mode {mode}", modes, 21, (220,), mode, None) for mode in f.PAD_MODES]
+    # the sliding branch's edges: ties, non-finite keys, the smallest windows,
+    # and each window on both sides of a branch switch
+    equal = torch.full(small(1, 120, 150), 3.5, device=dev)
+    two = torch.randint(0, 2, small(2, 64, 80), generator=g, device=dev).float()
+    special = torch.tensor([float("inf"), -float("inf"), 1.0, -1.0, 0.0], device=dev)
+    special = torch.cat([special, torch.tensor([0x7FC00000, -0x400000], dtype=torch.int32,
+                                                device=dev).view(torch.float32)])
+    odd = special[torch.randint(0, len(special), small(1, 90, 110), generator=g, device=dev)]
+    cases += [
+        ("all-equal windows", equal, 21, (220,), "reflect", None),
+        ("ties of two values", two, 22, (241, 242), "reflect", None),
+        ("+-inf and both NaN signs", odd, 21, (0, 440), "reflect", None),
+        ("+-inf and both NaN signs", odd, 11, (60,), "constant", None),
+        ("window 1", noise, 1, (0,), "reflect", None),
+        ("window 3", noise, 3, (4,), "reflect", None),
+        ("window 3", noise[:1], 3, (4,), "nearest", None),
+    ]
+    for (last, _), shape in zip(RANK_BRANCHES, ((1, 70, 90), (1, 90, 100), (1, 40, 50))):
+        for w in (last, last + 1):
+            x = torch.randn(small(*shape), generator=g, device=dev)
+            ks = (w * w // 2,) if w % 2 else (w * w // 2 - 1, w * w // 2)
+            cases.append((f"branch edge, window {w}", x, w, ks, "reflect", None))
     return cases
+
+
+def rank_branch(window: int) -> str:
+    return next((name for last, name in RANK_BRANCHES if window <= last),
+                "bisection on keys in device memory")
 
 
 def forward_conv_shapes(b: int, size: int, nb=(32, 64, 128, 256)):
@@ -319,6 +358,27 @@ def check_conv(m, x, wt, kw, moments: bool) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def compare_with(path: str, kernels: list, conv_ms: dict, say) -> None:
+    """Print each kernel's time in the earlier run's `kernels` line beside
+    this run's, and each conv call's per-call time beside this run's."""
+    lines = Path(path).read_text().splitlines()
+    old = next((json.loads(x) for x in lines if x.startswith('{"kernels"')), None)
+    if old is None:
+        raise RuntimeError(f"no kernels line in {path}")
+    old_ms = {k["name"]: k["ms"] for k in old["kernels"]}
+    for k in kernels:
+        if k["name"] in old_ms:
+            say(f"[compare] {k['name']}: earlier run {old_ms[k['name']]:.4f} ms, this run "
+                f"{k['ms']:.4f} ms ({old_ms[k['name']] / k['ms']:.2f}x)")
+    pattern = re.compile(r"\[time\] conv3x3_fused (\S+) \S+ \S+: ([0-9.]+) ms")
+    for x in lines:
+        hit = pattern.match(x)
+        if hit and hit.group(1) in conv_ms:
+            ms = conv_ms[hit.group(1)]
+            say(f"[compare] conv3x3_fused {hit.group(1)}: earlier run {float(hit.group(2)):.4f} "
+                f"ms, this run {ms:.4f} ms")
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -326,6 +386,9 @@ def main(argv: list[str] | None = None) -> int:
         action="store_true",
         help="tiny sizes on the CPU with the plain versions; prints no device result",
     )
+    parser.add_argument("--compare-with", metavar="FILE",
+                        help="output of an earlier run in the same chip call: print its kernel "
+                             "times beside this run's")
     parser.add_argument("--profile", metavar="DIR",
                         help="also trace the segmentation batch and the preprocessing batches")
     args = parser.parse_args(argv)
@@ -431,6 +494,32 @@ def main(argv: list[str] | None = None) -> int:
         max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
         say(f"[kernels] conv3x3_fused {name} ({b}x{h}x{w}, {c}->{co}, prologue, relu, accum, "
             f"moments): max abs err {err:g}, within one bf16 step")
+    edge_conv = [("W 100, not a multiple of the 64-pixel tile", 2, 37, 100, 32, 32),
+                 ("H 1", 1, 1, 130, 64, 64), ("B 1, C = Co = 256", 1, 20, 70, 256, 256),
+                 ("256 -> 128", 1, 9, 130, 256, 128)]
+    for k, (name, b, h, w, c, co) in enumerate(edge_conv):
+        for pro, acc in ((False, False), (True, False), (False, True), (True, True)):
+            x, wt, kw = conv_operands(b, h, w, c, co, pro, acc, dev, seed=300 + k)
+            err = check_conv(m, x, wt, kw, True)
+            max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
+            say(f"[kernels] conv3x3_fused {name} ({b}x{h}x{w}, {c}->{co}, prologue+relu {pro}, "
+                f"accum {acc}, moments): max abs err {err:g}, within one bf16 step")
+    # two launches on the same inputs: the same bits (fixed-order moments, no atomics)
+    name, c, co, h, pro, acc, _ = conv_calls[0]
+    for label, (b, hh, w, c, co, pro, acc) in (
+            (f"{name} at {n_wells}x{h}^2", (n_wells, h, h, c, co, pro, acc)),
+            ("B 1, C = Co = 256, prologue, accum", (1, 20, 70, 256, 256, True, True))):
+        x, wt, kw = conv_operands(b, hh, w, c, co, pro, acc, dev, seed=400)
+        (y1, (p1, q1)), (y2, (p2, q2)) = (conv_cuda.conv3x3_fused(x, wt, emit_moments=True, **kw)
+                                          for _ in range(2))
+        same = (torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+                and all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                        for u, v in ((p1, p2), (q1, q2))))
+        say(f"[kernels] conv3x3_fused {label}: two launches give the same bits of y and the "
+            f"moments: {same}")
+        if not same:
+            raise RuntimeError(f"conv3x3_fused is not deterministic on {label}")
+        del x, wt, kw, y1, y2
     gn_cases = [(n_wells, seg_size, seg_size, 32), (1, 1000, 1504, 32), (2, 37, 45, 64),
                 (1, 64, 64, 256)] if not rehearsal else [(2, 64, 64, 32), (1, 37, 45, 64)]
     for k, shape in enumerate(gn_cases):
@@ -458,7 +547,7 @@ def main(argv: list[str] | None = None) -> int:
         differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
         err = float((got - want).abs().nan_to_num(0.0).max())
         max_err["rank_select"] = max(max_err["rank_select"], err)
-        say(f"[kernels] rank_select {name} {tuple(x.shape)} window {window} ranks "
+        say(f"[kernels] rank_select {name} {tuple(x.shape)} window {window} ({rank_branch(window)}) ranks "
             f"{tuple(ranks)} mode {mode}: {differ} values differ in any bit")
         if differ:
             raise RuntimeError(f"rank_select differs from its plain version on {name}")
@@ -808,6 +897,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # fused conv: the 16 calls of one forward, each timed at its shape
     tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, bound=0.0)
+    conv_ms = {}
     for k, (name, c, co, h, pro, acc, mom) in enumerate(conv_calls):
         x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=k)
         ms, plain_ms = timed(lambda: conv_cuda.conv3x3_fused(x, wt, emit_moments=mom, **kw),
@@ -826,12 +916,15 @@ def main(argv: list[str] | None = None) -> int:
         for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bytes", b_ms),
                        ("ops", o_ms), ("bound", max(b_ms, o_ms))):
             tot[key] += v
+        conv_ms[name] = ms
         say(f"[time] conv3x3_fused {name} {n_wells}x{h}^2 {c}->{co}: {ms:.4f} ms "
-            f"({flop / ms / 1e9:.1f} TFLOP/s); bound {max(b_ms, o_ms):.4f} ms "
+            f"({flop / ms / 1e9:.1f} TFLOP/s); bound {max(b_ms, o_ms):.4f} ms, "
+            f"{max(b_ms, o_ms) / ms:.1%} of it reached "
             f"({'bytes' if b_ms >= o_ms else 'operations'}); plain {plain_ms:.3f} ms; "
             f"F.conv2d bf16 conv only {lib_ms:.4f} ms")
         del x, wt, kw
-    say(f"[time] conv3x3_fused, all 16 calls of one forward: {tot['ms']:.3f} ms; bound "
+    say(f"[time] conv3x3_fused, all 16 calls of one forward: {tot['ms']:.3f} ms "
+        f"({tot['bound'] / tot['ms']:.1%} of the bound); bound "
         f"{tot['bound']:.3f} ms (sum over calls of max(bytes {tot['bytes']:.3f}, operations "
         f"{tot['ops']:.3f})); plain {tot['plain']:.3f} ms; F.conv2d conv only {tot['lib']:.3f} ms")
 
@@ -858,12 +951,15 @@ def main(argv: list[str] | None = None) -> int:
                    b_ms, o_ms, None, "diffuse.cu")
 
     # rank selection at the timelapse configuration's calls: 8 launches of
-    # one 2048^2 frame, window 21, rank 220. The bound counts what the
-    # function needs, an 8-bit radix select per pixel and rank (4 digit
-    # passes of window^2 bin increments and a 256-bin scan), and the padded
-    # input read once and the output written once; the kernel's own
-    # bisection (32 rounds of window^2 compare-and-add steps, 2 operations
-    # each) is printed beside it as the algorithm's count
+    # one 2048^2 frame, window 21, rank 220. The bound's operations are the
+    # least work of a sliding selection: per pixel and rank, 2 x window
+    # histogram updates (the row that leaves, the row that enters) and one
+    # read of the selected key; per pixel, its share of ranking its tile's
+    # keys once, E log2 E compares for the E keys staged for a tile of 32
+    # columns and TH rows (the kernel's tile at this window: TH = 4 x
+    # `slide_rows` of csrc/rank_select.cu). Its bytes: the padded input read
+    # once, the output written once. An 8-bit radix select's count, 4 x
+    # (window^2 + 256) per pixel and rank, is printed beside it
     win, rk = 21, (220,)
     frames_f = list(lapse_f[:, None])
     ms, plain_ms = timed(lambda: [m.rank_cuda.rank_select(x, win, rk) for x in frames_f],
@@ -873,8 +969,12 @@ def main(argv: list[str] | None = None) -> int:
                                                 reps=3)
     px_r = lapse_f.numel()
     b_ms = (n_wells * (pre_size + 2 * (win // 2)) ** 2 + px_r) * 4 / HBM_BYTES_PER_S * 1e3
-    o_ms = 4 * (win * win + 256) * px_r * len(rk) / NON_TENSOR_OPS_PER_S * 1e3
-    bisect_ms = 32 * win * win * 2 * px_r * len(rk) / NON_TENSOR_OPS_PER_S * 1e3
+    span_x = 32 + win - 1
+    tile_h = 4 * ((4096 // span_x - (win - 1)) // 4)
+    tile_keys = span_x * (tile_h + win - 1)
+    sort_ops = tile_keys * math.log2(tile_keys) / (32 * tile_h)
+    o_ms = ((2 * win + 1) * len(rk) + sort_ops) * px_r / NON_TENSOR_OPS_PER_S * 1e3
+    radix_ms = 4 * (win * win + 256) * px_r * len(rk) / NON_TENSOR_OPS_PER_S * 1e3
 
     def kth_all():
         for x in frames_f:
@@ -886,9 +986,11 @@ def main(argv: list[str] | None = None) -> int:
     rank_launches = pre_launches["local threshold"]["rank_select"]
     say(f"[time] rank_select {n_wells} x {pre_size}^2, window {win}, one launch per frame: "
         f"{ms:.4f} ms ({batched_ms:.4f} ms as one batched launch); bound {max(b_ms, o_ms):.4f} ms "
-        f"(operations {o_ms:.4f}: radix select, 4 x (window^2 + 256) per pixel; bytes "
-        f"{b_ms:.4f}); the bisection's own count {bisect_ms:.4f} ms (32 x window^2 x 2 per "
-        f"pixel); plain {plain_ms:.3f} ms; torch.kthvalue "
+        f"(bytes {b_ms:.4f}; operations {o_ms:.4f}: {2 * win + 1} per pixel and rank and "
+        f"{sort_ops:.1f} per pixel for ranking {tile_keys} keys of a 32 x {tile_h} tile), "
+        f"{max(b_ms, o_ms) / ms:.2%} of it reached; an 8-bit radix select's count "
+        f"{radix_ms:.4f} ms; kernel branch {rank_branch(win)}; plain {plain_ms:.3f} ms; "
+        f"torch.kthvalue "
         f"over the unfolded windows, one call per frame, {lib_ms:.3f} ms; launches on the "
         f"timelapse path {rank_launches}")
     rank_row = ("rank_select", "ops/rank_pallas.py:67", rank_launches, ms, plain_ms, b_ms, o_ms,
@@ -901,6 +1003,9 @@ def main(argv: list[str] | None = None) -> int:
     entry(*gn_row)
     entry(*diffuse_row)
     entry(*rank_row)
+
+    if args.compare_with:
+        compare_with(args.compare_with, kernels, conv_ms, say)
 
     # -- 8. result ------------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -78,10 +78,14 @@ def _bf16(g, *shape, scale=1.0, device):
     return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
 
 
+# the last four: W not a multiple of the kernel's 64-pixel tile, H = 1,
+# C = Co = 256 with B = 1, and 256 -> 128 over several tiles
+CONV_SHAPES = [(2, 64, 80, 32, 32), (1, 40, 48, 64, 128), (1, 24, 32, 256, 128), (1, 3, 50, 32, 64),
+               (2, 37, 100, 32, 32), (1, 1, 130, 64, 64), (1, 20, 70, 256, 256), (1, 9, 130, 256, 128)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "b,h,w,c,co", [(2, 64, 80, 32, 32), (1, 40, 48, 64, 128), (1, 24, 32, 256, 128), (1, 3, 50, 32, 64)]
-)
+@pytest.mark.parametrize("b,h,w,c,co", CONV_SHAPES)
 def test_conv3x3_fused_matches_plain(cuda_device, b, h, w, c, co):
     """Within one bf16 step (the f32 sums run in another order); moments
     within 1e-5 of the plain sums of the kernel's own output."""
@@ -99,6 +103,25 @@ def test_conv3x3_fused_matches_plain(cuda_device, b, h, w, c, co):
         yf = y.float()
         torch.testing.assert_close(s1, yf.sum((1, 2)), rtol=0, atol=1e-5 * float(yf.abs().sum()) + 1e-6)
         torch.testing.assert_close(s2, (yf * yf).sum((1, 2)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 64, 80, 32, 32), (1, 20, 70, 256, 256)])
+def test_conv3x3_fused_gives_the_same_bits_twice(cuda_device, b, h, w, c, co):
+    """Fixed-order moment partials and no float atomics: two launches on the
+    same inputs give identical y and moment bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = _bf16(g, b, h, w, c, device=cuda_device)
+    wt = _bf16(g, 3, 3, co, c, scale=0.05, device=cuda_device)
+    pro = (torch.randn((b, c), generator=g, device=cuda_device) + 1,
+           torch.randn((b, c), generator=g, device=cuda_device) * 0.1)
+    acc = _bf16(g, b, h, w, co, device=cuda_device)
+    kw = {"prologue": pro, "relu": True, "accum": acc}
+    (y1, (a1, b1)), (y2, (a2, b2)) = (conv_cuda.conv3x3_fused(x, wt, emit_moments=True, **kw)
+                                      for _ in range(2))
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(a1.view(torch.int32), a2.view(torch.int32))
+    assert torch.equal(b1.view(torch.int32), b2.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -144,19 +167,38 @@ def test_segmentation_on_the_card_matches_the_cpu(cuda_device):
     assert abs(int(card.max()) - int(cpu.max())) <= 1 and (card == cpu).mean() >= 0.99
 
 
+def _rank_input(kind: str, shape, g, device) -> torch.Tensor:
+    if kind == "equal":
+        return torch.full(shape, -2.5, device=device)
+    if kind == "special":  # +-inf, a positive and a negative NaN, signed zeros
+        vals = torch.tensor([float("inf"), -float("inf"), 0.0, -0.0, 1.0], device=device)
+        nans = torch.tensor([0x7FC00000, -0x400000], dtype=torch.int32, device=device)
+        vals = torch.cat([vals, nans.view(torch.float32)])
+        return vals[torch.randint(0, len(vals), shape, generator=g, device=device)]
+    x = torch.round(torch.randn(shape, generator=g, device=device) * 2)
+    return torch.where(x == 0, torch.where(torch.rand(shape, generator=g, device=device) < 0.5,
+                                           -0.0, 0.0), x)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "window, ranks, shape",
-    [(11, (60,), (2, 100, 130)), (15, (0, 224), (3, 37, 53)), (21, (220,), (1, 256, 300)),
-     (22, (241, 242), (2, 64, 80)), (255, (32512,), (1, 40, 50))],
+    "window, ranks, shape, kind",
+    [(11, (60,), (2, 100, 130), "rounded"), (15, (0, 224), (3, 37, 53), "rounded"),
+     (21, (220,), (1, 256, 300), "rounded"), (22, (241, 242), (2, 64, 80), "rounded"),
+     (255, (32512,), (1, 40, 50), "rounded"),
+     (21, (220,), (1, 70, 90), "equal"), (21, (0, 440), (1, 70, 90), "special"),
+     (1, (0,), (2, 33, 47), "rounded"), (3, (4,), (2, 33, 47), "special"),
+     (35, (612,), (1, 70, 90), "rounded"), (36, (647, 648), (1, 70, 90), "rounded"),
+     (74, (2737, 2738), (1, 90, 100), "rounded"), (75, (2812,), (1, 90, 100), "rounded"),
+     (225, (25312,), (1, 40, 50), "rounded"), (226, (25537, 25538), (1, 40, 50), "rounded")],
 )
-def test_rank_select_matches_plain_bit_for_bit(cuda_device, window, ranks, shape):
-    """Signed zeros, ties and negative values; window 255 reads its keys
-    from device memory."""
+def test_rank_select_matches_plain_bit_for_bit(cuda_device, window, ranks, shape, kind):
+    """Signed zeros, ties and negative values, all-equal windows, +-inf and
+    NaNs of both signs, the smallest windows and the windows on each side of
+    the kernel's branch switches (35/36, 74/75, 225/226); window 255 reads
+    its keys from device memory."""
     g = torch.Generator(device=cuda_device).manual_seed(window)
-    x = torch.round(torch.randn(shape, generator=g, device=cuda_device) * 2)
-    x = torch.where(x == 0, torch.where(torch.rand(shape, generator=g, device=cuda_device) < 0.5,
-                                        -0.0, 0.0), x)
+    x = _rank_input(kind, shape, g, cuda_device)
     for mode in filters.PAD_MODES:
         got = rank_cuda.rank_select(x, window, ranks, mode)
         want = rank_cuda.rank_select_plain(x, window, ranks, mode)

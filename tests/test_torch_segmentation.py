@@ -76,6 +76,37 @@ class TestWeights:
         for name, p in model.network.named_parameters():
             assert torch.equal(p.detach(), sd[name]), name
 
+    def test_orbax_directory_is_refused_before_any_load(self):
+        """The reference's checkpoint is an orbax directory; the port reads
+        only the .npz export and says how to make one."""
+        with pytest.raises(ValueError, match=r"directory.*unet_checkpoint\.npz.*np\.savez"):
+            _cpu_model(checkpoint_path=CHECKPOINT)
+        with pytest.raises(ValueError, match="flatten_tree"):
+            _cpu_model(checkpoint_path=str(CHECKPOINT))
+
+    @pytest.mark.parametrize("seed", [0, 5])
+    def test_seeded_weights_follow_init_unet_in_names_shapes_and_spread(self, seed):
+        """jax.random and torch.Generator draw different numbers from one
+        seed by design: the seeded U-Net matches `init_unet` in leaf names,
+        shapes and each large weight leaf's spread (within 10%), not in
+        values."""
+        from arcadia_microscopy_tools_tpu.models.unet import init_unet
+        from arcadia_microscopy_tools_tpu_torch.models.weights import state_dict_from_tree
+
+        tree = jax.tree.map(np.asarray, init_unet(jax.random.PRNGKey(seed)))
+        want = state_dict_from_tree(flatten_tree(tree))
+        got = _cpu_model(seed=seed).network.state_dict()
+        assert sorted(got) == sorted(want)
+        large = 0
+        for name, leaf in want.items():
+            assert tuple(got[name].shape) == tuple(leaf.shape), name
+            if leaf.numel() >= 1000:
+                large += 1
+                ratio = float(got[name].float().std()) / float(leaf.std())
+                assert abs(ratio - 1) <= 0.1, (name, ratio)
+        assert large >= 10
+        assert not torch.equal(got["down.1.conv1"], want["down.1.conv1"])
+
 
 class TestSegmentationModelAPI:
     def test_parameter_defaults(self):
