@@ -11,12 +11,17 @@ T = src. The JAX loop writes `(...) / 5.0 + src`; XLA compiles that into a
 multiplication by the float32 constant 0.2 fused with the add (one
 rounding), and the port computes the same.
 
-For CUDA tensors `diffuse` runs the temporally blocked kernel of
-`csrc/diffuse.cu`: ceil(n_iter / 8) launches of up to 8 iterations each
-(`DIFFUSE_HALO`), the last one running the remainder. For CPU tensors it runs the plain
-PyTorch loop, which the tests and `chip_smoke.py` hold the kernel against
-bit for bit. There is no fallback: a CUDA tensor launches the kernel or
-raises.
+For CUDA tensors `diffuse` runs the kernels of `csrc/diffuse.cu`. Labels
+never exchange heat, so each label is diffused alone. The cell pass finds
+every label's bounding box (a box pass over the labels, which also zeroes
+the output) and runs all `n_iter` iterations of each label whose box,
+padded by one pixel, fits its shared memory, on chip. The pixels of the
+other labels (a box too large, or a label above the box table's depth) go
+through the dense branch, the blocked stencil over the windows they touch:
+ceil(n_iter / 8) launches of up to 8 iterations each (`DIFFUSE_HALO`). The
+data chooses the branch; `branch_counts` adds up what the kernels' box pass
+counted for each one. For CPU tensors it runs the plain PyTorch loop, which the tests and `chip_smoke.py` hold the kernels against bit for
+bit. There is no fallback: a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from .._build import check_launch, cuda_stream
 
 __all__ = [
     "DIFFUSE_HALO",
+    "branch_counts",
     "diffuse",
     "diffuse_plain",
     "launch_counts",
@@ -38,17 +44,22 @@ __all__ = [
     "same_label_masks",
 ]
 
-DIFFUSE_HALO = 8  # iterations per launch; the kernel's 128^2 window keeps 112^2
+DIFFUSE_HALO = 8  # iterations per dense launch; the kernel's 128^2 window keeps 112^2
 F32_FIFTH = 0.20000000298023224  # the float32 nearest 1/5, which XLA multiplies by
 _OFFSETS = ((-1, 0), (1, 0), (0, -1), (0, 1))
 
-# kernel launches; only a launch of the CUDA kernel counts
-launch_counts = {"diffuse": 0}
+# kernel launches per branch; only a launch of a CUDA kernel counts
+launch_counts = {"diffuse": 0, "diffuse_dense": 0}
+# what the kernels' box pass found, over the CUDA calls since the last reset:
+# labels (per image) in the cell pass and in the dense branch, and pixels of
+# labels above the box table's depth (dense, not counted as labels)
+branch_counts = {"cell_labels": 0, "dense_labels": 0, "pixels_above_table": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, branch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def same_label_masks(lbl: torch.Tensor) -> list[torch.Tensor]:
@@ -85,8 +96,14 @@ def _library() -> ctypes.CDLL:
 
     lib = load_kernel_library("diffuse").lib
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_diffuse_pass.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
-    lib.amt_diffuse_pass.restype = i
+    lib.amt_diffuse_ctl_words.argtypes = [i, i, i, i]
+    lib.amt_diffuse_ctl_words.restype = ctypes.c_longlong
+    lib.amt_diffuse_boxes.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.amt_diffuse_boxes.restype = i
+    lib.amt_diffuse_cells.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.amt_diffuse_cells.restype = i
+    lib.amt_diffuse_dense.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.amt_diffuse_dense.restype = i
     return lib
 
 
@@ -119,21 +136,45 @@ def diffuse(lbl: torch.Tensor, src: torch.Tensor, n_iter: int) -> torch.Tensor:
     if n_iter == 0 or lbl.numel() == 0:
         return src.clone()
     lib = _library()
-    bufs = [torch.empty_like(src), torch.empty_like(src)]
-    t = src
-    remaining = n_iter
-    k = 0
-    while remaining > 0:
-        iters = min(DIFFUSE_HALO, remaining)
-        remaining -= iters
-        out = bufs[k % 2]
-        with torch.cuda.device(lbl.device):
-            err = lib.amt_diffuse_pass(
-                lbl.data_ptr(), t.data_ptr(), src.data_ptr(), out.data_ptr(),
-                b, h, w, DIFFUSE_HALO, iters, cuda_stream(lbl),
-            )
+    if lbl.data_ptr() % 16:  # the box pass reads the labels 16 bytes at a time
+        lbl = lbl.clone()
+    out = torch.empty_like(src)
+    ctl = torch.empty(lib.amt_diffuse_ctl_words(b, h, w, DIFFUSE_HALO), dtype=torch.int32,
+                      device=lbl.device)
+    stream = cuda_stream(lbl)
+    found = torch.empty(4, dtype=torch.int32, pin_memory=True)
+    listed = torch.cuda.Event()
+    with torch.cuda.device(lbl.device):
+        err = lib.amt_diffuse_boxes(lbl.data_ptr(), out.data_ptr(), ctl.data_ptr(), b, h, w,
+                                    DIFFUSE_HALO, stream)
         check_launch(err, "diffuse")
-        launch_counts["diffuse"] += 1
-        t = out
-        k += 1
-    return t
+        # the windows that hold labels the cell pass leaves and the counts per
+        # branch, read while it runs
+        found.copy_(ctl[2:6], non_blocking=True)
+        listed.record()
+        err = lib.amt_diffuse_cells(lbl.data_ptr(), src.data_ptr(), out.data_ptr(),
+                                    ctl.data_ptr(), b, h, w, DIFFUSE_HALO, n_iter, stream)
+    check_launch(err, "diffuse")
+    launch_counts["diffuse"] += 1
+    listed.synchronize()
+    n_windows, dense_labels, cell_labels, pixels_above = found.tolist()
+    branch_counts["cell_labels"] += cell_labels
+    branch_counts["dense_labels"] += dense_labels
+    branch_counts["pixels_above_table"] += pixels_above
+    if n_windows == 0:
+        return out
+    t = src
+    bufs = [torch.empty_like(src), torch.empty_like(src)]
+    n_launch = -(-n_iter // DIFFUSE_HALO)
+    for k in range(n_launch):
+        iters = min(DIFFUSE_HALO, n_iter - k * DIFFUSE_HALO)
+        dst = out if k == n_launch - 1 else bufs[k % 2]
+        with torch.cuda.device(lbl.device):
+            err = lib.amt_diffuse_dense(
+                lbl.data_ptr(), t.data_ptr(), src.data_ptr(), dst.data_ptr(), ctl.data_ptr(),
+                b, h, w, DIFFUSE_HALO, iters, n_windows, stream,
+            )
+        check_launch(err, "diffuse_dense")
+        launch_counts["diffuse_dense"] += 1
+        t = dst
+    return out

@@ -13,10 +13,11 @@ Phases, each printing its lines:
    ptxas reports;
 3. kernels against plain - each kernel against its plain PyTorch version on
    the card: both CC kernels bit-exact on 8 x 2048^2 masks, a serpentine
-   that hits the sweep cap, a ragged 1000 x 1500 mask and all-background /
-   all-foreground masks; the fused 3x3 conv on each of the 16 (C, Co, level,
-   prologue, ReLU, accum, moments) combinations of a 8 x 2048^2 forward plus
-   a ragged 1000 x 1504 and a 3-row image, within one bf16 step, and at the
+   that hits the sweep cap, a ragged 1000 x 1500 mask, all-background /
+   all-foreground masks and tiles without foreground beside tiles with it;
+   the fused 3x3 conv on each of the 16 (C, Co, level, prologue, ReLU,
+   accum, moments) combinations of a 8 x 2048^2 forward plus a ragged
+   1000 x 1504 and a 3-row image, within one bf16 step, and at the
    tiling's edges (W not a multiple of the 64-pixel tile, H = 1, B = 1 with
    C = Co = 256, 256 -> 128), each with and without prologue and accum; two
    launches on the same inputs give the same bits of y and the moments; the
@@ -32,9 +33,14 @@ Phases, each printing its lines:
    the plain path on the CPU;
 5. segmentation path - 8 synthetic 2048^2 images through
    `SegmentationModel.batch_segment` with the trained weights and its
-   launch counts of all five kernels; the QC diffusion kernel bit-exact
-   against its plain version on that run's label images, a ragged crop and
-   a remainder pass; one 512^2 image on the card against the CPU plain path;
+   launch counts of all five kernels; the QC diffusion bit-exact against
+   its plain version on that run's label images (128, 13 and 1 iterations),
+   a ragged crop, and cases that drive its dense branch as well as its cell
+   pass (a whole-image label, a label split between far corners, labels
+   above the box table, 1-pixel labels, touching labels on the image edges,
+   boxes on both sides of the cell pass's capacity), with both branches
+   launched; one 512^2 image on the card against the CPU
+   plain path;
 6. preprocessing path - two `Pipeline(..., parallel=True)` configurations
    on 8 2048^2 uint16 frames from host memory: Gaussian -> 3x3 median ->
    rolling ball on noise tiles, and a 21x21 median local threshold ->
@@ -43,10 +49,11 @@ Phases, each printing its lines:
    crop of frame 0 of the second held against the CPU path;
 7. timing - plate wells/s and per-stage ms; segmentation images/s split
    into host preparation, forward, mask reconstruction and, within it, the
-   QC diffusion; preprocessing images/s and ms per operation; each
-   kernel's time beside its bound, its plain version's time and, for the
-   conv, cuDNN's bf16 `F.conv2d` and, for the rank selection,
-   `torch.kthvalue` over the unfolded windows, on the same shapes;
+   QC diffusion (with its foreground fraction and labels per branch);
+   preprocessing images/s and ms per operation; each kernel's time beside
+   its bound, its plain version's time and, for the conv, cuDNN's bf16
+   `F.conv2d` and, for the rank selection, `torch.kthvalue` over the
+   unfolded windows, on the same shapes;
 8. the `kernels` JSON line, then the card's name and power limit, then the
    final `{"ok": true, ...}` line.
 
@@ -434,7 +441,8 @@ def main(argv: list[str] | None = None) -> int:
             for report in dict.fromkeys(reports):
                 say(f"[build] {name} ptxas: {report}")
         smem = 2 * cc_cuda.CC_BLOCK**2 * 4 + cc_cuda.CC_BLOCK**2
-        say(f"[build] cc_local dynamic shared memory per CTA: {smem} B")
+        say(f"[build] cc_local: local_cc keeps its labels in registers; local_resweep's "
+            f"dynamic shared memory per CTA: {smem} B")
 
     # -- data ---------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -453,6 +461,11 @@ def main(argv: list[str] | None = None) -> int:
         f"ragged {ragged[0]}x{ragged[1]}": masks[:1, : ragged[0], : ragged[1]].contiguous(),
         "empty": torch.zeros((1, 256, 384), dtype=torch.bool, device=dev),
         "full": torch.ones((1, 256, 384), dtype=torch.bool, device=dev),
+        # tiles without foreground store their sentinels at once; beside them,
+        # tiles that sweep
+        "empty tiles beside foreground": torch.cat(
+            [masks[:1, :256, :256], torch.zeros((1, 256, 128), dtype=torch.bool, device=dev),
+             masks[:1, :256, 256:512]], 2).contiguous(),
     }
     max_err = {"local_cc": 0.0, "local_resweep": 0.0, "conv3x3_fused": 0.0,
                "lane_moments": 0.0, "diffuse": 0.0}
@@ -686,21 +699,74 @@ def main(argv: list[str] | None = None) -> int:
             raise RuntimeError(f"network output not finite or of shape {tuple(out.shape)}")
 
         # kernel 6 bit-exact on the run's label images (cells straddle the
-        # 112-pixel window seams), a ragged crop and a remainder pass
+        # 112-pixel window seams), a ragged crop, and cases that drive each
+        # branch: the cell pass, and the dense branch for labels whose box is
+        # too large for it (a whole-image cell, a label split between far
+        # corners) or that lie above its box table, which holds labels
+        # 1..4096 of each image, or whose box padded by one pixel exceeds the
+        # cell pass's 64 x 64 pixels
+        g = torch.Generator(device=dev).manual_seed(500)
+        full = (1, seg_size, seg_size)
+        one = torch.ones(full, dtype=torch.int32, device=dev)
+        one_src = torch.zeros(full, device=dev)
+        one_src[0, seg_size // 3, seg_size // 2] = 1.0
+        split = torch.zeros(full, dtype=torch.int32, device=dev)
+        split[0, :40, :30] = 3
+        split[0, -30:, -45:] = 3
+        split[0, 500:530, 700:725] = 1
+        above = qc_lbl[:1].clone()
+        above[above > 0] += 4046  # labels 4047 and up: most above the table
+        px1 = 96 if not rehearsal else 40
+        singles = torch.arange(1, px1 * px1 + 1, dtype=torch.int32, device=dev).reshape(1, px1, px1)
+        # 7 x 9 blocks that touch, on every image edge: one of 40 labels drawn
+        # per block, so each label repeats across the image and its box takes
+        # the dense branch; and one label per block, so every box fits a cell
+        blocks = torch.randint(1, 41, (2, 37, 45), generator=g, device=dev, dtype=torch.int32)
+        touch = blocks.repeat_interleave(7, 1).repeat_interleave(9, 2).contiguous()
+        order = torch.randperm(37 * 45, generator=g, device=dev).to(torch.int32) + 1
+        touch_tight = order.reshape(1, 37, 45).repeat_interleave(7, 1).repeat_interleave(9, 2)
+        touch_tight = touch_tight.contiguous()
+        edge = torch.zeros(full, dtype=torch.int32, device=dev)
+        edge[0, 300:362, 400:462] = 1  # padded to 64 x 64 pixels, the capacity
+        edge[0, 362:425, 462:524] = 2  # a row taller, touching label 1 at a corner
+
+        def sparse_src(lb, p=0.02):
+            return ((lb > 0) & (torch.rand(lb.shape, generator=g, device=dev) < p)).float()
+
         diff_cases = [
             ("main labels, 128 iterations", qc_lbl, qc_src, 128),
             ("main labels, 13 iterations (remainder pass of 5)", qc_lbl[:2], qc_src[:2], 13),
             ("ragged 1000x1504 crop", qc_lbl[:1, :1000, :1504].contiguous(),
              qc_src[:1, :1000, :1504].contiguous(), 128),
+            ("main labels, 1 iteration", qc_lbl[:2], qc_src[:2], 1),
+            (f"one label covering the whole {seg_size}^2 image", one, one_src, 128),
+            ("a label split between two far corners", split, sparse_src(split, 0.05), 128),
+            ("labels above the box table", above.contiguous(), qc_src[:1], 13),
+            (f"{px1}^2 1-pixel labels", singles, sparse_src(singles, 0.5), 13),
+            ("touching labels on the image edges", touch, sparse_src(touch), 128),
+            ("touching labels, one per block", touch_tight, sparse_src(touch_tight), 13),
+            ("boxes at the cell pass's capacity and a row above it", edge, sparse_src(edge, 0.05),
+             128),
         ]
+        launched = dict.fromkeys(flows_cuda.launch_counts, 0)
         for name, lb, sr, it in diff_cases:
+            flows_cuda.reset_launch_counts()
             got = flows_cuda.diffuse(lb, sr, it)
+            for k, v in flows_cuda.launch_counts.items():
+                launched[k] += v
+            found = dict(flows_cuda.branch_counts)
             want = flows_cuda.diffuse_plain(lb, sr, it)
             err = float((got - want).abs().max())
             max_err["diffuse"] = max(max_err["diffuse"], err)
-            say(f"[kernels] diffuse {name} {tuple(lb.shape)}: max abs err {err:g}")
+            say(f"[kernels] diffuse {name} {tuple(lb.shape)}, {it} iterations: max abs err "
+                f"{err:g}; launches {dict(flows_cuda.launch_counts)}; the box pass found {found}")
             if not torch.equal(got, want):
                 raise RuntimeError(f"diffuse differs from its plain version on {name}")
+            if lb is edge and not rehearsal and (found["cell_labels"], found["dense_labels"]) != (1, 1):
+                raise RuntimeError(f"the capacity case took the wrong branches: {found}")
+        say(f"[kernels] diffuse launches over these cases: {launched}")
+        if not rehearsal and min(launched.values()) <= 0:
+            raise RuntimeError("the diffusion cases did not launch both branches")
         say("[kernels] diffuse equals its plain version bit for bit")
 
         # one image on the card against the CPU plain path
@@ -939,14 +1005,32 @@ def main(argv: list[str] | None = None) -> int:
               b_ms, o_ms, None, "gn_moments.cu")
     del xg
 
-    # QC diffusion at the run's labels, 128 iterations
+    # QC diffusion at the run's labels, 128 iterations. The work depends on
+    # the data: 6 operations per foreground pixel and iteration (4 neighbour
+    # adds, the scaling and the source add); bytes: every label read and every
+    # T written once, and the source of foreground pixels only (background T
+    # is 0 whatever its source). Beside it, as algorithm figures: 12 bytes
+    # per pixel (every source read too) and the dense count, 6 operations per
+    # pixel of the whole batch and iteration
     ms, plain_ms = timed(lambda: flows_cuda.diffuse(qc_lbl, qc_src, 128),
                          lambda: flows_cuda.diffuse_plain(qc_lbl, qc_src, 128), kreps=5)
-    b_ms = qc_lbl.numel() * 12 / HBM_BYTES_PER_S * 1e3
-    o_ms = qc_lbl.numel() * 128 * 6 / NON_TENSOR_OPS_PER_S * 1e3
+    qc_fg = int((qc_lbl > 0).sum())
+    b_ms = (qc_lbl.numel() * 8 + qc_fg * 4) / HBM_BYTES_PER_S * 1e3
+    o_ms = qc_fg * 128 * 6 / NON_TENSOR_OPS_PER_S * 1e3
+    all_src_ms = qc_lbl.numel() * 12 / HBM_BYTES_PER_S * 1e3
+    dense_ms = qc_lbl.numel() * 128 * 6 / NON_TENSOR_OPS_PER_S * 1e3
+    flows_cuda.reset_launch_counts()
+    flows_cuda.diffuse(qc_lbl, qc_src, 128)
+    found = dict(flows_cuda.branch_counts)
     say(f"[time] diffuse {tuple(qc_lbl.shape)} x 128 iterations: {ms:.4f} ms; bound "
-        f"{max(b_ms, o_ms):.4f} ms (operations: 6 per pixel and iteration; bytes {b_ms:.4f}); "
-        f"plain {plain_ms:.3f} ms; {flows_cuda.DIFFUSE_HALO} iterations per launch")
+        f"{max(b_ms, o_ms):.4f} ms ({'bytes' if b_ms >= o_ms else 'operations'}; bytes {b_ms:.4f}: "
+        f"8 per pixel and 4 per foreground pixel; operations {o_ms:.4f}: 6 per foreground pixel "
+        f"and iteration; foreground fraction {qc_fg / qc_lbl.numel():.4f}), "
+        f"{max(b_ms, o_ms) / ms:.2%} of it reached; algorithm figures: every source read, 12 "
+        f"bytes per pixel, {all_src_ms:.4f} ms; 6 operations per pixel of the whole batch "
+        f"{dense_ms:.4f} ms; the box pass found {found}; plain {plain_ms:.3f} ms; launches on "
+        f"the segmentation path: cell pass {seg_launches['diffuse']}, dense branch "
+        f"{seg_launches['diffuse_dense']} ({flows_cuda.DIFFUSE_HALO} iterations each)")
     diffuse_row = ("diffuse", "models/flows_pallas.py:78", seg_launches["diffuse"], ms, plain_ms,
                    b_ms, o_ms, None, "diffuse.cu")
 

@@ -144,6 +144,32 @@ def test_diffuse_matches_plain_bit_for_bit(cuda_device, n_iter):
 
 
 @pytest.mark.gpu
+def test_diffuse_dense_branch_matches_plain_bit_for_bit(cuda_device):
+    """Labels the cell pass leaves: a whole-image label, a label split
+    between far corners, labels above the box table; beside cells, and on
+    both sides of the cell pass's capacity, a box padded to 64 x 64 pixels."""
+    rng = np.random.default_rng(4)
+    lbl = np.zeros((3, 300, 260), np.int32)
+    lbl[0] = 1
+    lbl[1, :20, :30] = 2
+    lbl[1, -25:, -12:] = 2
+    lbl[1, 100:140, 100:130] = 5
+    lbl[1, 150:212, 10:72] = 6  # padded to 64 x 64 pixels, the capacity
+    lbl[1, 200:263, 150:212] = 7  # a row taller
+    # the box table holds labels 1..4096: 4094 over the whole image, the rest above it
+    lbl[2] = rng.integers(0, 6, (300, 260)) * 4094
+    src = ((lbl > 0) & (rng.random(lbl.shape) < 0.03)).astype(np.float32)
+    lbl_t, src_t = torch.from_numpy(lbl).to(cuda_device), torch.from_numpy(src).to(cuda_device)
+    flows_cuda.reset_launch_counts()
+    got = flows_cuda.diffuse(lbl_t, src_t, 21)
+    assert torch.equal(got, flows_cuda.diffuse_plain(lbl_t, src_t, 21))
+    assert flows_cuda.launch_counts == {"diffuse": 1, "diffuse_dense": 3}
+    assert flows_cuda.branch_counts == {
+        "cell_labels": 2, "dense_labels": 4, "pixels_above_table": int((lbl > 4096).sum())
+    }
+
+
+@pytest.mark.gpu
 def test_new_wrappers_count_launches(cuda_device):
     for mod in (conv_cuda, gn_cuda, flows_cuda):
         mod.reset_launch_counts()
@@ -154,7 +180,12 @@ def test_new_wrappers_count_launches(cuda_device):
     flows_cuda.diffuse(lbl, torch.zeros((1, 16, 16), device=cuda_device), 20)
     assert conv_cuda.launch_counts == {"conv3x3_fused": 1}
     assert gn_cuda.launch_counts == {"lane_moments": 1}
-    assert flows_cuda.launch_counts == {"diffuse": 3}
+    # a 16^2 cell fits the cell pass; an 80^2 one takes the dense branch,
+    # ceil(20 / 8) launches
+    assert flows_cuda.launch_counts == {"diffuse": 1, "diffuse_dense": 0}
+    lbl = torch.ones((1, 80, 80), dtype=torch.int32, device=cuda_device)
+    flows_cuda.diffuse(lbl, torch.zeros((1, 80, 80), device=cuda_device), 20)
+    assert flows_cuda.launch_counts == {"diffuse": 2, "diffuse_dense": 3}
     with pytest.raises(ValueError):
         conv_cuda.conv3x3_fused(x.float(), torch.zeros((3, 3, 32, 32), device=cuda_device))
 

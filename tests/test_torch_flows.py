@@ -84,6 +84,40 @@ class TestDiffusion:
                 got[k], np.asarray(diffuse_pallas(lj, sj, 11, ts=128, halo=4, interpret=True))
             )
 
+    @pytest.mark.parametrize("seed, n_iter", [(7, 37), (8, 1), (9, 2), (10, 13), (11, 128)])
+    def test_labels_diffuse_independently(self, seed, n_iter):
+        """What the card's cell pass rests on: the diffusion of a label image
+        equals, label by label, the diffusion of that label alone, and
+        `diffuse_xla`. Touching labels, a label split between two far
+        corners and labels on the image edge."""
+        rng = np.random.default_rng(seed)
+        lbl = np.zeros((70, 90), np.int32)
+        lbl[10:30, 10:25] = 1
+        lbl[10:30, 25:40] = 2  # touches label 1
+        lbl[30:45, 15:35] = 3  # touches both
+        lbl[40:70, 60:90] = 5  # on the bottom and right edges
+        lbl[:6, :8] = 4
+        lbl[-5:, -9:] = 4  # split between far corners, beside label 5
+        lbl[0:20, 70:90] = rng.integers(6, 9, (20, 20))  # speckled labels on the top edge
+        lbl[50:55, 0:4] = -2  # negative labels are background
+        src = ((lbl > 0) & (rng.random(lbl.shape) < 0.05)).astype(np.float32)
+        for k in range(1, 9):
+            src[np.argwhere(lbl == k)[0][0], np.argwhere(lbl == k)[0][1]] = 1.0
+        whole = flows_cuda.diffuse_plain(
+            torch.from_numpy(lbl[None]), torch.from_numpy(src[None]), n_iter
+        )[0]
+        np.testing.assert_array_equal(
+            whole.numpy(), np.asarray(diffuse_xla(jnp.asarray(lbl), jnp.asarray(src), n_iter))
+        )
+        for k in range(1, 9):
+            own = lbl == k
+            alone = flows_cuda.diffuse_plain(
+                torch.from_numpy(np.where(own, lbl, 0)[None]),
+                torch.from_numpy(np.where(own, src, 0)[None]), n_iter,
+            )[0]
+            np.testing.assert_array_equal(whole.numpy()[own], alone.numpy()[own])
+        assert not whole.numpy()[lbl <= 0].any()
+
     def test_wrapper_validates(self):
         lbl = torch.zeros((1, 8, 8), dtype=torch.int32)
         with pytest.raises(ValueError):
