@@ -3,6 +3,8 @@
 native:
 	mkdir -p arcadia_microscopy_tools_tpu/_native
 	g++ -O3 -shared -fPIC -o arcadia_microscopy_tools_tpu/_native/libamt_host.so native/amt_host.cpp
+	mkdir -p arcadia_microscopy_tools_tpu_torch/_native/build
+	g++ -O3 -shared -fPIC -o arcadia_microscopy_tools_tpu_torch/_native/build/libamt_host.so native/amt_host.cpp
 
 test:
 	python -m pytest tests/ -q

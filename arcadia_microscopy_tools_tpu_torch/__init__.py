@@ -1,12 +1,17 @@
 """arcadia_microscopy_tools_tpu_torch: the PyTorch / CUDA port of
 arcadia_microscopy_tools_tpu.
 
-This package runs three paths in PyTorch:
+This package runs these paths in PyTorch:
 
-- the classical plate path - DoG, percentile rescale and a histogram
+- ND2 ingest: `load_nd2` and `MicroscopyImage.from_nd2_path` (host code,
+  with the repository's C++ planarize where `_native.build()` built it);
+- the plate runner, `PlateRunner.run` from wells to per-cell tables, by
+  either method: "classical" - DoG, percentile rescale and a histogram
   threshold, two-phase connected components, foreground compaction,
   per-cell measurement - with the connected-components tile sweeps as
-  hand-written CUDA kernels for Hopper (`csrc/cc_local.cu`);
+  hand-written CUDA kernels for Hopper (`csrc/cc_local.cu`); or "unet" -
+  the U-Net forward and mask reconstruction in the compact domain, measured
+  directly on the listed pixels;
 - the deep segmentation path, `SegmentationModel.segment` /
   `batch_segment` - U-Net forward, flow tracking and flow-error QC - with the
   fused 3x3 conv (`csrc/conv3x3_fused.cu`), GroupNorm moments
@@ -27,6 +32,7 @@ The layout mirrors the JAX package (`core/`, `ops/`, `models/`,
 
 from .core.channels import Channel
 from .core.microplate import MicroplateLayout
+from .core.microscopy import MicroscopyImage
 from .exceptions import MetadataWarning, SegmentationWarning
 from .models.segmentation import SegmentationModel
 from .ops.fused import fused_classical_mask
@@ -42,6 +48,7 @@ __all__ = [
     "ImageOperation",
     "MetadataWarning",
     "MicroplateLayout",
+    "MicroscopyImage",
     "Pipeline",
     "PlateResults",
     "PlateRunConfig",

@@ -27,8 +27,10 @@ from the fused blocks of the JAX package's `unet_s2d.py`:
 GroupNorm is one-pass (E[x^2] - mean^2, clamped at 0) in every dtype; the
 JAX package's float32 path is two-pass, so the float32 forward agrees with
 `apply_unet` to the tolerance stated in the tests, not bit for bit. The
-bfloat16 forward is the one the CUDA kernels run; float32 runs on the CPU
-only.
+bfloat16 forward is the one the CUDA kernels run. A float32 forward runs
+the same blocks through the kernels' plain PyTorch versions on any device,
+as the JAX package runs its float32 forward in XLA, outside its bfloat16
+Pallas conv.
 
 Parameters keep the names of `init_unet`. Layouts: 3x3 convs (3, 3, Co, C),
 the layout the conv kernel stages; 1x1 convs and dense layers (C, Co).
@@ -41,8 +43,8 @@ import math
 import torch
 from torch import nn
 
-from .conv_cuda import conv2d_f32, conv3x3_fused, gn_affine_params
-from .gn_cuda import lane_moments
+from .conv_cuda import conv2d_f32, conv3x3_fused, conv3x3_fused_plain, gn_affine_params
+from .gn_cuda import lane_moments, lane_moments_plain
 
 __all__ = ["UNet", "UNetConfig"]
 
@@ -55,7 +57,8 @@ class UNetConfig:
         base_channels: channel widths per resolution level.
         out_channels: output maps (dY, dX, cellprob).
         groups: GroupNorm group count.
-        compute_dtype: activation dtype (bfloat16; float32 on the CPU).
+        compute_dtype: activation dtype (bfloat16, the kernels' dtype, or
+            float32 through the plain versions).
     """
 
     def __init__(
@@ -150,6 +153,18 @@ class UNet(nn.Module):
             he(p, p.shape[0])
         he(self.head, self.head.shape[0])
 
+    def _conv(self, *args, **kwargs):
+        """`conv3x3_fused` in bfloat16 (the kernel on the card); its plain
+        version in any other dtype."""
+        if self.config.compute_dtype == torch.bfloat16:
+            return conv3x3_fused(*args, **kwargs)
+        return conv3x3_fused_plain(*args, **kwargs)
+
+    def _moments(self, x):
+        if self.config.compute_dtype == torch.bfloat16:
+            return lane_moments(x)
+        return lane_moments_plain(x)
+
     def _tail(self, blk: _ConvBlock, y1, m1, skip):
         """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
         then GN2 affine + residual + ReLU (rounding points of the JAX
@@ -158,7 +173,7 @@ class UNet(nn.Module):
         _, h, w, c = y1.shape
         n = h * w * (c // min(groups, c))
         sc1, bi1 = gn_affine_params(m1[0], m1[1], blk.gn1_scale, blk.gn1_bias, groups, n)
-        y2, m2 = conv3x3_fused(
+        y2, m2 = self._conv(
             y1, blk.conv2.to(dt), prologue=(sc1, bi1), relu=True, emit_moments=True
         )
         sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
@@ -174,8 +189,6 @@ class UNet(nn.Module):
     @torch.no_grad()  # inference only: the kernels have no backward
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.config.compute_dtype
-        if x.device.type != "cpu" and dt != torch.bfloat16:
-            raise NotImplementedError("the forward on the card runs in bfloat16 only")
 
         def w(t: torch.Tensor) -> torch.Tensor:
             return t.to(dt).contiguous()
@@ -186,9 +199,9 @@ class UNet(nn.Module):
         for i, blk in enumerate(self.down):
             if i == 0:
                 y1 = conv2d_f32(h, w(blk.conv1)).to(dt)
-                m1 = lane_moments(y1)
+                m1 = self._moments(y1)
             else:
-                y1, m1 = conv3x3_fused(h, w(blk.conv1), emit_moments=True)
+                y1, m1 = self._conv(h, w(blk.conv1), emit_moments=True)
             skip = h if blk.proj is None else h @ w(blk.proj)
             h = self._tail(blk, y1, m1, skip)
             del y1, skip
@@ -207,9 +220,9 @@ class UNet(nn.Module):
             skip_t = skips[n_levels - 2 - i]
             c_up = h.shape[-1]
             up = _upsample2(h)
-            a = conv3x3_fused(up, w(blk.conv1[..., :c_up]))
+            a = self._conv(up, w(blk.conv1[..., :c_up]))
             del up
-            y1, m1 = conv3x3_fused(skip_t, w(blk.conv1[..., c_up:]), accum=a, emit_moments=True)
+            y1, m1 = self._conv(skip_t, w(blk.conv1[..., c_up:]), accum=a, emit_moments=True)
             del a
             skip = _upsample2(h @ w(blk.proj[:c_up])) + skip_t @ w(blk.proj[c_up:])
             h = self._tail(blk, y1, m1, skip)

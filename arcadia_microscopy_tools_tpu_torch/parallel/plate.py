@@ -1,10 +1,16 @@
 """End-to-end plate pipeline on one device.
 
-Counterpart of `arcadia_microscopy_tools_tpu/parallel/plate.py`, classical
-branch: well images -> DoG / percentile rescale / global threshold
-(optionally a binary opening) -> connected components -> foreground
-compaction -> per-cell morphology and per-channel intensity, for a whole
-microplate. A batch of wells is one (B, C, H, W) tensor on the device.
+Counterpart of `arcadia_microscopy_tools_tpu/parallel/plate.py`: well images
+-> a mask -> per-cell morphology and per-channel intensity, for a whole
+microplate. A batch of wells is one (B, C, H, W) tensor on the device. Two
+methods make the mask:
+
+- "classical": DoG / percentile rescale / global threshold (optionally a
+  binary opening) -> connected components -> foreground compaction;
+- "unet": a 1-99 percentile stretch from the exact integer histogram ->
+  the U-Net forward -> mask reconstruction in the compact domain
+  (`models.flows.compute_masks_sparse_compact`), whose listed pixels are
+  measured directly.
 
 The runner keeps the reference's host-side contract:
 - per-well failure isolation: a failed well yields None and a
@@ -33,6 +39,7 @@ from typing import Callable, Mapping
 import numpy as np
 import pandas as pd
 import torch
+import torch.nn.functional as F
 
 from ..core.channels import Channel
 from ..core.microplate import MicroplateLayout
@@ -40,7 +47,7 @@ from ..exceptions import SegmentationWarning
 from ..ops.basic import rescale_by_percentile, subtract_background_dog
 from ..ops.compaction import compact_by_root
 from ..ops.filters import to_float
-from ..ops.fused import HIST_THRESHOLD_METHODS, fused_classical_mask
+from ..ops.fused import HIST_THRESHOLD_METHODS, _percentile_from_cum, fused_classical_mask
 from ..ops.labeling import component_roots
 from ..ops.morphology import binary_opening, disk
 from ..ops.regionprops import measure_compacted
@@ -93,7 +100,8 @@ class PlateRunConfig:
 
     Attributes:
         seg_channel_index: Index of the channel used for segmentation.
-        method: "classical" (the only method ported so far).
+        method: "classical" (DoG -> rescale -> threshold -> CC) or "unet"
+            (U-Net + flow tracking).
         threshold_method: Global threshold for the classical path: a
             histogram method or "li" ("li", like any opening, takes the
             staged branch).
@@ -103,11 +111,13 @@ class PlateRunConfig:
         max_cells: Per-well cell capacity (padded measurements).
         batch_size: Wells per device dispatch (None = DEFAULT_BATCH).
         measure_channel_indices: Channels to quantify per cell (None = all).
-        min_size: Minimum object size in pixels.
-        cellprob_threshold / flow_threshold / niter: U-Net path settings,
-            kept for config compatibility.
+        min_size: Minimum object size in pixels (classical cleanup and the
+            U-Net mask filter).
+        cellprob_threshold / flow_threshold / niter: U-Net mask
+            reconstruction settings.
         fg_cap_fraction: Foreground-pixel capacity of the compacted
-            measurement path, as a fraction of the image area.
+            measurement path (and of the U-Net's active-pixel list), as a
+            fraction of the image area.
         pair_cap: Capacity for connected-components boundary-merge edges.
     """
 
@@ -182,12 +192,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def _check_supported(config: PlateRunConfig) -> None:
-    """Raise for the configurations this port does not run yet."""
-    if config.method == "unet":
-        raise NotImplementedError(
-            "method='unet' is not ported yet (ROADMAP.md queue 1, item 10: deep path)"
-        )
-    if config.method != "classical":
+    """Raise for unknown methods and threshold names."""
+    if config.method not in ("classical", "unet"):
         raise ValueError(f"Unknown segmentation method: {config.method!r}")
     if config.threshold_method not in GLOBAL_METHODS:
         raise ValueError(f"Unknown threshold method: {config.threshold_method!r}")
@@ -216,14 +222,98 @@ def _staged_mask(seg_img: torch.Tensor, config: PlateRunConfig) -> torch.Tensor:
     return mask
 
 
+def unet_network(unet_params=None, device: str | torch.device = "cpu"):
+    """The plate runner's U-Net (bfloat16 forward) on `device`.
+
+    `unet_params` is the JAX package's parameter tree as numpy arrays (a
+    nested dict / list, or flattened to dotted keys as in the `.npz`
+    checkpoints) or the port's `UNet` state_dict (torch tensors, as
+    `models.weights.load_weights` returns). None gives seeded weights
+    (`torch.Generator` seed 0; the numbers differ from the JAX package's
+    `seeded_params()` by design, see `models.unet.UNet`)."""
+    from ..models.unet import UNet, UNetConfig
+    from ..models.weights import flatten_tree, state_dict_from_tree
+
+    if unet_params is None:
+        net = UNet(UNetConfig(), generator=torch.Generator().manual_seed(0))
+    else:
+        if isinstance(unet_params, Mapping) and all(
+            isinstance(v, torch.Tensor) for v in unet_params.values()
+        ):
+            state = dict(unet_params)
+        else:
+            state = state_dict_from_tree(flatten_tree(unet_params))
+        net = UNet(UNetConfig(), generator=torch.Generator())
+        net.load_state_dict(state)
+    return net.to(device).eval()
+
+
+def _normalised(seg: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint16-valued float32 frames stretched to [0, 1] between
+    each frame's 1st and 99th percentiles, read from its exact integer
+    histogram (np.percentile's values), clipped in float32."""
+    b, h, w = seg.shape
+    values = seg.reshape(b, h * w).long() + 65536 * torch.arange(b, device=seg.device)[:, None]
+    counts = torch.bincount(values.reshape(-1), minlength=65536 * b).reshape(b, 65536)
+    cum = torch.cumsum(counts, -1).to(torch.float32)  # exact below 2^24 pixels
+    p1 = _percentile_from_cum(cum, 1.0, h * w)[:, None, None]
+    p99 = _percentile_from_cum(cum, 99.0, h * w)[:, None, None]
+    return ((seg - p1) / torch.clamp(p99 - p1, min=1e-6)).clamp(0.0, 1.0)
+
+
+def _unet_masks(seg: torch.Tensor, network, config: PlateRunConfig):
+    """Compact U-Net masks of (B, H, W) float32 frames: the stretch, an edge
+    pad to the U-Net's multiple of 8, the forward on the replicated
+    grayscale (B, H, W, 3) input, the crop, and mask reconstruction in the
+    compact domain with the border filter folded in."""
+    from ..models.flows import compute_masks_sparse_compact
+
+    _, h, w = seg.shape
+    x = _normalised(seg)
+    ph, pw = (-h) % 8, (-w) % 8
+    if ph or pw:
+        x = F.pad(x[:, None], (0, pw, 0, ph), mode="replicate")[:, 0]
+    out = network(x[..., None].expand(-1, -1, -1, 3))
+    del x
+    return compute_masks_sparse_compact(
+        out[:, :h, :w],
+        foreground_capacity(config, h, w),
+        cellprob_threshold=config.cellprob_threshold,
+        flow_threshold=config.flow_threshold,
+        niter=config.niter,
+        max_cells=config.max_cells,
+        min_size=config.min_size,
+        clear_border_labels=config.remove_edge_cells,
+    )
+
+
+def measure_unet_masks(labels, lab_c, idx, valid, stack: torch.Tensor, max_cells: int):
+    """Per-cell measurement of compact U-Net masks: the listed pixels sorted
+    by (label, flat index) as one int64 key, then `measure_compacted` with
+    the roots image `labels - 1` (H * W where there is no label). Returns
+    measure_compacted's (props, intensity)."""
+    b, h, w = labels.shape
+    n = h * w
+    key = torch.where(valid, lab_c.long(), 0) * (n + 1) + torch.where(valid, idx, n)
+    key = torch.sort(key, 1).values
+    roots = torch.where(labels > 0, labels - 1, n)
+    # padding slots (label 0) are not measured; their index only has to be in range
+    idx_s = (key % (n + 1)).clamp_max(n - 1)
+    return measure_compacted(key // (n + 1), idx_s, roots, stack, max_cells, w)
+
+
 def _build_well_program(
-    config: PlateRunConfig, n_channels: int
-) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    config: PlateRunConfig, n_channels: int, network=None, debug_labels: bool = False
+) -> Callable[[torch.Tensor], tuple[torch.Tensor, ...]]:
     """The batched well program: (B, C, H, W) uint16 wells -> packed
     (B, max_cells, 15 + 4 * C_measured) float32 per-cell columns and (B, 3)
     int32 health scalars (component count, foreground overflow, CC
-    convergence certificate)."""
+    convergence certificate). The "unet" method needs `network`
+    (`unet_network`); `debug_labels` (unet only) also returns its (B, H, W)
+    label images."""
     _check_supported(config)
+    if debug_labels and config.method != "unet":
+        raise ValueError("debug_labels is only supported for method='unet'")
     seg_idx = config.seg_channel_index
     measure_idx = (
         config.measure_channel_indices
@@ -231,14 +321,9 @@ def _build_well_program(
         else tuple(range(n_channels))
     )
 
-    def well_fn(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        # convert before any indexing: on CUDA, uint16 tensors support little
-        # beyond copies and casts
+    def classical(img: torch.Tensor, stack: torch.Tensor):
         seg_img = to_float(img[:, seg_idx])
-        stack = img.to(torch.float32)[:, list(measure_idx)]
         h, w = seg_img.shape[-2:]
-        cap = foreground_capacity(config, h, w)
-
         if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
             mask = fused_classical_mask(
                 seg_img,
@@ -250,23 +335,33 @@ def _build_well_program(
         else:  # per well: the percentiles and the threshold are per image
             mask = torch.stack([_staged_mask(frame, config) for frame in seg_img])
         roots, converged = component_roots(mask, pair_cap=config.pair_cap)
-        comp = compact_by_root(roots, cap)
+        comp = compact_by_root(roots, foreground_capacity(config, h, w))
         props, stats = measure_compacted(comp.seg, comp.idx, roots, stack, config.max_cells, w)
+        health = (comp.num_components, comp.overflow, converged)
+        return props, stats, health, None
 
+    def unet(img: torch.Tensor, stack: torch.Tensor):
+        cm = _unet_masks(img[:, seg_idx].to(torch.float32), network, config)
+        props, stats = measure_unet_masks(
+            cm.labels, cm.lab_c, cm.idx, cm.valid, stack, config.max_cells
+        )
+        # the largest label; padding slots hold 0
+        health = (cm.lab_c.amax(1), ~cm.ok, torch.ones_like(cm.ok))
+        return props, stats, health, cm.labels
+
+    def well_fn(img: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        # convert before any indexing: on CUDA, uint16 tensors support little
+        # beyond copies and casts
+        stack = img.to(torch.float32)[:, list(measure_idx)]
+        method = classical if config.method == "classical" else unet
+        props, stats, health, labels = method(img, stack)
         columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
         for k in range(len(measure_idx)):
             for stat in _INTENSITY_STATS:
                 columns.append(stats[k][stat].to(torch.float32))
         packed = torch.stack(columns, -1)
-        health = torch.stack(
-            [
-                comp.num_components.to(torch.int32),
-                comp.overflow.to(torch.int32),
-                converged.to(torch.int32),
-            ],
-            -1,
-        )
-        return packed, health
+        health = torch.stack([h.to(torch.int32) for h in health], -1)
+        return (packed, health, labels) if debug_labels else (packed, health)
 
     return well_fn
 
@@ -301,20 +396,26 @@ def _progress_bar(total: int):
 
 
 class PlateRunner:
-    """Runs a plate of wells through the classical pipeline on one device."""
+    """Runs a plate of wells through the fused pipeline on one device."""
 
     def __init__(
         self,
         config: PlateRunConfig | None = None,
         checkpoint_dir: str | Path | None = None,
         device: str | torch.device | None = None,
+        unet_params=None,
     ):
         """`device` None means the CUDA card, and raises when there is none;
-        pass device="cpu" to run the plain versions of the kernels."""
+        pass device="cpu" to run the plain versions of the kernels.
+        `unet_params` are the U-Net weights of the "unet" method, in any
+        form `unet_network` takes; None gives seeded weights."""
         self.config = config or PlateRunConfig()
         _check_supported(self.config)
         self.device = resolve_device(device)
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
+        self.network = (
+            unet_network(unet_params, self.device) if self.config.method == "unet" else None
+        )
 
     # -- checkpoint / resume ---------------------------------------------------
 
@@ -369,8 +470,9 @@ class PlateRunner:
         valid = np.asarray(props["valid"][well_index])
         area_all = np.asarray(props["area"][well_index])
         keep = valid & (area_all >= self.config.min_size)
-        if self.config.remove_edge_cells:
-            # border cut from bboxes (skimage.segmentation.clear_border)
+        if self.config.remove_edge_cells and self.config.method == "classical":
+            # border cut from bboxes (skimage.segmentation.clear_border); the
+            # unet method folds it into its mask tail
             h, w = image_shape
             keep &= (
                 (np.asarray(props["bbox_min_row"][well_index]) > 0)
@@ -515,7 +617,7 @@ class PlateRunner:
                 staged = torch.from_numpy(np.stack(images)).to(self.device)
                 n_channels = staged.shape[1]
                 image_shape = tuple(staged.shape[-2:])
-                packed, health = _build_well_program(config, n_channels)(staged)
+                packed, health = _build_well_program(config, n_channels, self.network)(staged)
             except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
                 fail(ok_ids, e)
                 return None

@@ -1,5 +1,6 @@
-"""On-card smoke run of the PyTorch port: the classical plate path, the
-deep segmentation path and the preprocessing `Pipeline`.
+"""On-card smoke run of the PyTorch port: the classical and U-Net plate
+paths (staged, and from ND2 files), the deep segmentation path and the
+preprocessing `Pipeline`.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -10,7 +11,8 @@ Phases, each printing its lines:
 1. device - the card's name and `nvidia-smi` name / power limit;
 2. build - the six CUDA kernels of `csrc/` (five libraries), compiled with
    nvcc for sm_90a, one nvcc per source, all started together, with their
-   ptxas reports;
+   ptxas reports; beside them the host library of `native/amt_host.cpp`
+   (g++; the ND2 planarize);
 3. kernels against plain - each kernel against its plain PyTorch version on
    the card: both CC kernels bit-exact on 8 x 2048^2 masks, a serpentine
    that hits the sweep cap, a ragged 1000 x 1500 mask, all-background /
@@ -47,15 +49,32 @@ Phases, each printing its lines:
    binary opening -> label on a blob timelapse, which launches the rank
    kernel once per frame; launch counts; frame 0 of the first and a 640^2
    crop of frame 0 of the second held against the CPU path;
-7. timing - plate wells/s and per-stage ms; segmentation images/s split
-   into host preparation, forward, mask reconstruction and, within it, the
-   QC diffusion (with its foreground fraction and labels per branch);
-   preprocessing images/s and ms per operation; each kernel's time beside
-   its bound, its plain version's time and, for the conv, cuDNN's bf16
-   `F.conv2d` and, for the rank selection, `torch.kthvalue` over the
-   unfolded windows, on the same shapes;
-8. the `kernels` JSON line, then the card's name and power limit, then the
-   final `{"ok": true, ...}` line.
+7. U-Net plate path - the same 8 wells through `PlateRunner.run` with
+   method="unet" and the trained weights, with the launch counts of kernels
+   4-6; well 0 stage by stage: the input stretch, then the card's network
+   output through the compact mask tail on the card and on the CPU (labels,
+   lab_c, idx, valid and ok bit for bit), then its table within the plate
+   phase's tolerances; the compact tail against the dense `compute_masks`
+   on the same outputs; one 512^2 float32 forward on the card against the
+   CPU;
+8. decode-inclusive - the 8 wells written as ND2 files
+   (tests/nd2_builder.py), `PlateRunner.run` for both methods with an
+   image source that calls the port's `load_nd2` (wells/s including
+   decode, decode ms per well, the planarize that ran); the five real ND2
+   fixtures decoded by the port's reader and segmented on the card against
+   the pinned golden U-Net masks (matched >= 0.8, matched IoU >= 0.85);
+9. timing - plate wells/s and per-stage ms; U-Net plate wells/s split into
+   the stretch, the forward, the compact mask tail (of which the QC
+   diffusion) and the measurement, beside the dense `compute_masks` on the
+   same outputs; segmentation images/s split into host preparation,
+   forward, mask reconstruction and, within it, the QC diffusion (with its
+   foreground fraction and labels per branch); preprocessing images/s and
+   ms per operation; each kernel's time beside its bound, its plain
+   version's time and, for the conv, cuDNN's bf16 `F.conv2d` and, for the
+   rank selection, `torch.kthvalue` over the unfolded windows, on the same
+   shapes;
+10. the `kernels` JSON line, then the card's name and power limit, then
+   the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
 script exits non-zero at once. `--cpu-rehearsal` runs every phase at a
@@ -65,9 +84,10 @@ control flow); it prints no device result and exits non-zero.
 commit's `chip_smoke.py`, run in the same chip call) and prints each
 kernel's earlier time beside this run's, and each conv call's.
 `--profile DIR` adds a `torch.profiler` trace of one forward and one mask
-reconstruction of the segmentation batch and one batch of each
-preprocessing configuration: device time by kernel and the card's idle
-share, printed and written to DIR/profile_segment.txt.
+reconstruction of the segmentation batch, one batch of each preprocessing
+configuration, one U-Net plate batch, its compact mask tail and the dense
+`compute_masks` on the same outputs: device time by kernel and the card's
+idle share, printed and written to DIR/profile_segment.txt.
 """
 
 from __future__ import annotations
@@ -76,8 +96,10 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -94,6 +116,13 @@ CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
 RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
                  (225, "bisection on staged keys"))
 KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select"]
+REPO = Path(__file__).resolve().parent
+DATA = REPO / "tests" / "data"
+ND2_CHANNELS = ["DAPI", "FITC", "TRITC", "CY5"]
+# the pinned fixtures and their diameters (tools/pin_golden_masks.py:42)
+GOLDEN_FIXTURES = ["example-multichannel", "example-timelapse", "example-zstack", "example-pbmc",
+                   "example-cerevisiae"]
+FIXTURE_DIAMETERS = {"example-zstack": 70.0}
 
 
 def log(msg: str) -> None:
@@ -180,8 +209,9 @@ def port_modules() -> SimpleNamespace:
     """Every module of the port this script drives (imported here, so that a
     machine without a card fails at the device check before any of them)."""
     import arcadia_microscopy_tools_tpu_torch as pkg
-    from arcadia_microscopy_tools_tpu_torch import _build, testing
-    from arcadia_microscopy_tools_tpu_torch.core import microplate
+    from arcadia_microscopy_tools_tpu_torch import _build, _native, testing
+    from arcadia_microscopy_tools_tpu_torch.core import microplate, microscopy
+    from arcadia_microscopy_tools_tpu_torch.io import nd2, nikon
     from arcadia_microscopy_tools_tpu_torch.models import (
         conv_cuda,
         flows,
@@ -196,7 +226,8 @@ def port_modules() -> SimpleNamespace:
     from arcadia_microscopy_tools_tpu_torch.parallel import plate
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
-        _build, testing, microplate, conv_cuda, flows, flows_cuda, gn_cuda, unet, weights,
+        _build, _native, testing, microplate, microscopy, nd2, nikon, conv_cuda, flows,
+        flows_cuda, gn_cuda, unet, weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
         threshold, plate,
     )}, pkg=pkg)
@@ -386,6 +417,65 @@ def compare_with(path: str, kernels: list, conv_ms: dict, say) -> None:
                 f"ms, this run {ms:.4f} ms")
 
 
+def greedy_instance_iou(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """(mean matched IoU, matched fraction) of two label images under greedy
+    best-IoU pairing (the golden gate of tests/test_golden_masks.py)."""
+    ids_a = [i for i in np.unique(a) if i > 0]
+    ids_b = [i for i in np.unique(b) if i > 0]
+    if not ids_a or not ids_b:
+        return (1.0, 1.0) if not ids_a and not ids_b else (0.0, 0.0)
+    ious = np.zeros((len(ids_a), len(ids_b)))
+    for i, ia in enumerate(ids_a):
+        ma = a == ia
+        for j, jb in enumerate(ids_b):
+            mb = b == jb
+            inter = np.logical_and(ma, mb).sum()
+            if inter:
+                ious[i, j] = inter / np.logical_or(ma, mb).sum()
+    matched, used = [], set()
+    for i in np.argsort(-ious.max(axis=1)):
+        j = int(np.argmax(np.where([c not in used for c in range(len(ids_b))], ious[i], -1)))
+        if ious[i, j] > 0.5 and j not in used:
+            matched.append(ious[i, j])
+            used.add(j)
+    return (float(np.mean(matched)) if matched else 0.0, len(matched) / max(len(ids_a), len(ids_b)))
+
+
+def compare_measurements(props_d, int_d, props_c, int_c) -> float:
+    """Per-cell columns measured on the card against the CPU's: integer
+    columns equal, orientation modulo pi where the cell is elongated and
+    its moments do not tie, intensity finiteness equal. Returns the worst
+    relative difference of the float columns (1e-4 floor on the scale)."""
+    worst = 0.0
+    ecc = props_c["eccentricity"]
+    for name, a in props_d.items():
+        a, b = a.cpu(), props_c[name]
+        if a.dtype in (torch.int32, torch.bool):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"integer column {name} differs from the CPU")
+        elif name == "orientation":
+            # an axis angle: +-pi/2 are one axis; near-round cells and exact
+            # moment ties (+-pi/4) depend on the last bit of the sums
+            d = (a - b).abs()
+            d = torch.minimum(d, torch.pi - d)
+            quarter = (a.abs() - torch.pi / 4).abs() < 1e-4
+            ties = quarter & ((b.abs() - torch.pi / 4).abs() < 1e-4)
+            held = (ecc > 0.3) & ~ties
+            if bool((d[held] > 1e-4).any()):
+                raise RuntimeError("orientation differs from the CPU")
+        else:
+            worst = max(worst, float(((a - b).abs() / (1e-4 + b.abs())).max()))
+    for ci in int_d:
+        for stat, a in int_d[ci].items():
+            a, b = a.cpu(), int_c[ci][stat]
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                raise RuntimeError(f"intensity {stat} finiteness differs from the CPU")
+            rel = (a[fin] - b[fin]).abs() / (1e-4 + b[fin].abs())
+            worst = max(worst, float(rel.max()))
+    return worst
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -397,7 +487,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="output of an earlier run in the same chip call: print its kernel "
                              "times beside this run's")
     parser.add_argument("--profile", metavar="DIR",
-                        help="also trace the segmentation batch and the preprocessing batches")
+                        help="also trace the segmentation, preprocessing and U-Net plate "
+                             "batches")
     args = parser.parse_args(argv)
     rehearsal = args.cpu_rehearsal
 
@@ -429,11 +520,18 @@ def main(argv: list[str] | None = None) -> int:
     say(f"[device] nvidia-smi: {smi}")
 
     # -- 2. build -----------------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:  # g++ of the host library beside the nvcc builds
+        host_build = pool.submit(m._native.build)
+        if not rehearsal:
+            t0 = time.perf_counter()
+            built = m._build.load_kernel_libraries(KERNEL_LIBRARIES)
+            say(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
+                f"(one nvcc per source, in parallel)")
+        say(f"[build] host library (g++ of native/amt_host.cpp): "
+            f"{'built' if host_build.result() else 'not built, the pure-Python fallbacks run'}")
     if not rehearsal:
-        t0 = time.perf_counter()
-        built = m._build.load_kernel_libraries(KERNEL_LIBRARIES)
-        say(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
-            f"(one nvcc per source, in parallel)")
         for name, lib in built.items():
             # template instantiations report alike: each distinct line once
             reports = [line.split(":", 1)[-1].strip() for line in lib.ptxas_log.splitlines()
@@ -626,33 +724,7 @@ def main(argv: list[str] | None = None) -> int:
     props_c, int_c = m.regionprops.measure_compacted(
         comp_c.seg, comp_c.idx, roots_c, torch.from_numpy(wells[:1]), config.max_cells, size
     )
-    worst = 0.0
-    ecc = props_c["eccentricity"]
-    for name, a in props_d.items():
-        a, b = a.cpu(), props_c[name]
-        if a.dtype in (torch.int32, torch.bool):
-            if not torch.equal(a, b):
-                raise RuntimeError(f"integer column {name} differs from the CPU")
-        elif name == "orientation":
-            # an axis angle: +-pi/2 are one axis; near-round cells and exact
-            # moment ties (+-pi/4) depend on the last bit of the sums
-            d = (a - b).abs()
-            d = torch.minimum(d, torch.pi - d)
-            quarter = (a.abs() - torch.pi / 4).abs() < 1e-4
-            ties = quarter & ((b.abs() - torch.pi / 4).abs() < 1e-4)
-            held = (ecc > 0.3) & ~ties
-            if bool((d[held] > 1e-4).any()):
-                raise RuntimeError("orientation differs from the CPU")
-        else:
-            worst = max(worst, float(((a - b).abs() / (1e-4 + b.abs())).max()))
-    for ci in int_d:
-        for stat, a in int_d[ci].items():
-            a, b = a.cpu(), int_c[ci][stat]
-            fin = torch.isfinite(b)
-            if not torch.equal(torch.isfinite(a), fin):
-                raise RuntimeError(f"intensity {stat} finiteness differs from the CPU")
-            rel = (a[fin] - b[fin]).abs() / (1e-4 + b[fin].abs())
-            worst = max(worst, float(rel.max()))
+    worst = compare_measurements(props_d, int_d, props_c, int_c)
     say(f"[check] well 0 roots/compaction/integer columns equal the CPU; worst float "
         f"relative difference {worst:.2e}")
     if worst > 1e-5:
@@ -847,7 +919,164 @@ def main(argv: list[str] | None = None) -> int:
     if not np.array_equal(lab_card, lab_cpu) or lab_cpu.max() <= 0:
         raise RuntimeError("timelapse labels on the card differ from the CPU")
 
-    # -- 7. timing ------------------------------------------------------------------
+    # -- 7. U-Net plate path ----------------------------------------------------------
+    unet_config = m.plate.PlateRunConfig(method="unet", max_cells=1024)
+    unet_runner = m.plate.PlateRunner(unet_config, device=dev, unet_params=m.weights.load_weights())
+    reset_all_counts(m)
+    t0 = time.perf_counter()
+    unet_results = unet_runner.run(layout, source)
+    sync()
+    unet_run_s = time.perf_counter() - t0
+    unet_launches = all_counts(m)
+    say(f"[unet plate] PlateRunner.run(method='unet'): {n_wells} wells in {unet_run_s:.3f} s "
+        f"(first run, includes staging and host tables); launches {unet_launches}")
+    if unet_results.failed_wells or unet_results.timings["capacity_retries"]:
+        raise RuntimeError(f"U-Net plate: failed wells {unet_results.failed_wells}, capacity "
+                           f"retries {unet_results.timings['capacity_retries']}")
+    unet_counts = [len(unet_results.tables[w]) for w in layout.well_ids]
+    say(f"[unet plate] cells per well: {unet_counts} ({blobs} blobs per well)")
+    if not all(lo <= c <= hi for c in unet_counts):
+        raise RuntimeError(f"implausible U-Net cell counts {unet_counts} for {blobs} blobs per well")
+    if not np.isfinite(unet_results.to_dataframe().drop(columns=["well_id"]).to_numpy(float)).all():
+        raise RuntimeError("non-finite values in the U-Net plate tables")
+    unet_kernels = ("conv3x3_fused", "lane_moments", "diffuse")
+    if not rehearsal and min(unet_launches[k] for k in unet_kernels) <= 0:
+        raise RuntimeError(f"the U-Net plate path did not launch kernels 4-6: {unet_launches}")
+
+    # well 0 stage by stage: the stretch, then the card's network output through
+    # the compact tail on the card and on the CPU, then the measurement
+    net_u = unet_runner.network
+    cap_u = m.plate.foreground_capacity(unet_config, size, size)
+    tail_kw = dict(cellprob_threshold=unet_config.cellprob_threshold,
+                   flow_threshold=unet_config.flow_threshold, niter=unet_config.niter,
+                   max_cells=unet_config.max_cells, min_size=unet_config.min_size,
+                   clear_border_labels=unet_config.remove_edge_cells)
+    stack_u = staged.to(torch.float32)
+    seg_u = stack_u[:, unet_config.seg_channel_index].contiguous()
+    with torch.inference_mode():
+        xn_u = m.plate._normalised(seg_u)
+        if not torch.equal(xn_u[:1].cpu(), m.plate._normalised(seg_u[:1].cpu())):
+            raise RuntimeError("the U-Net input stretch on the card differs from the CPU")
+        out_u = net_u(xn_u[..., None].expand(-1, -1, -1, 3))
+        if not bool(torch.isfinite(out_u).all()):
+            raise RuntimeError("non-finite U-Net plate network output")
+        cm_u = flows.compute_masks_sparse_compact(out_u, cap_u, **tail_kw)
+        cm_cpu = flows.compute_masks_sparse_compact(out_u[:1].cpu(), cap_u, **tail_kw)
+        for name, a, b in zip(cm_u._fields, cm_u, cm_cpu):
+            if not torch.equal(a[:1].cpu(), b):
+                raise RuntimeError(f"compact tail {name} of well 0 differs between the card and the CPU")
+        props_d, int_d = m.plate.measure_unet_masks(cm_u.labels[:1], cm_u.lab_c[:1], cm_u.idx[:1],
+                                                    cm_u.valid[:1], stack_u[:1], unet_config.max_cells)
+        props_c, int_c = m.plate.measure_unet_masks(*cm_cpu[:4], stack_u[:1].cpu(),
+                                                    unet_config.max_cells)
+        worst = compare_measurements(props_d, int_d, props_c, int_c)
+        say(f"[check] U-Net well 0: stretch equal, compact tail (labels, lab_c, idx, valid, ok) "
+            f"equal bit for bit between the card and the CPU ({int(cm_cpu.labels.max())} cells, ok "
+            f"{bool(cm_cpu.ok[0])}); table integer columns equal, worst float relative difference "
+            f"{worst:.2e}")
+        if worst > 1e-5:
+            raise RuntimeError("U-Net well 0 float columns differ from the CPU beyond 1e-5 relative")
+        del props_d, props_c, int_d, int_c, cm_cpu
+
+        # the compact tail against the dense route on the same network output
+        dense_u = flows.compute_masks(out_u, flow_threshold=unet_config.flow_threshold,
+                                      niter=unet_config.niter, max_cells=unet_config.max_cells,
+                                      min_size=unet_config.min_size)
+        oks = cm_u.ok.tolist()
+        same = [bool(torch.equal(a, b)) for a, b, ok in zip(cm_u.labels, dense_u, oks) if ok]
+        say(f"[check] U-Net plate compact tail vs dense compute_masks on the same outputs: "
+            f"{sum(same)} of {sum(oks)} wells with ok equal bit for bit ({len(oks) - sum(oks)} "
+            f"over capacity)")
+        if not all(same) or not any(oks):
+            raise RuntimeError("the compact tail and the dense compute_masks disagree")
+        del dense_u
+
+        # the float32 forward on the card (the kernels' plain versions) against the CPU
+        f32_nets = []
+        for d in (dev, "cpu"):
+            net32 = m.unet.UNet(m.unet.UNetConfig(compute_dtype=torch.float32),
+                                generator=torch.Generator())
+            net32.load_state_dict(m.weights.load_weights())
+            f32_nets.append(net32.to(d).eval())
+        reset_all_counts(m)
+        out32_card = f32_nets[0](xi.to(dev)).cpu()
+        f32_launches = all_counts(m)
+        out32_cpu = f32_nets[1](xi)
+        scale = float(out32_cpu.abs().max())
+        d32 = float((out32_card - out32_cpu).abs().max())
+        say(f"[check] {check_size}^2 float32 forward card vs CPU: max abs {d32:.3g}, output scale "
+            f"{scale:.4g} (limit 1e-3 of scale); kernel launches {f32_launches}")
+        if d32 > 1e-3 * scale or any(f32_launches[k] for k in ("conv3x3_fused", "lane_moments")):
+            raise RuntimeError("the float32 forward on the card differs from the CPU or launched "
+                               "a bfloat16 kernel")
+        del f32_nets, out32_card, out32_cpu
+
+    # -- 8. decode-inclusive plate and the real ND2 fixtures ------------------------------
+    sys.path.insert(0, str(REPO / "tests"))
+    from nd2_builder import write_nd2
+
+    nd2_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_nd2_"))
+    decode_rows = {}
+    try:
+        t0 = time.perf_counter()
+        nd2_paths = {w: write_nd2(nd2_dir / f"{w}.nd2", wells[k], channel_names=ND2_CHANNELS)
+                     for k, w in enumerate(layout.well_ids)}
+        mb = sum(p.stat().st_size for p in nd2_paths.values()) / 2**20
+        say(f"[decode] wrote {n_wells} ND2 files of {n_ch}x{size}x{size} uint16 ({mb:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.1f} s; native planarize library "
+            f"{'built' if m._native.available() else 'missing: the numpy transpose runs'}")
+        if not np.array_equal(m.nikon.load_nd2(nd2_paths["A01"])[0], wells[0]):
+            raise RuntimeError("an ND2 file does not decode to the pixels written")
+
+        def from_nd2(well_id):
+            return m.nikon.load_nd2(nd2_paths[well_id])[0]
+
+        for name, runner_x, want in (("classical", runner, counts), ("unet", unet_runner, unet_counts)):
+            runner_x.run(layout, from_nd2)  # warm
+            t0 = time.perf_counter()
+            runner_x.run(layout, source)  # the same wells from host arrays, for the difference
+            sync()
+            host_wall = time.perf_counter() - t0
+            before = dict(m.nd2.planarize_counts)
+            t0 = time.perf_counter()
+            res = runner_x.run(layout, from_nd2)
+            sync()
+            wall = time.perf_counter() - t0
+            got = [len(res.tables[w]) for w in layout.well_ids]
+            route = {k: m.nd2.planarize_counts[k] - before[k] for k in before}
+            decode_ms = res.timings["decode_s"] / res.timings["decode_wells"] * 1e3
+            decode_cpu_ms = res.timings["decode_cpu_s"] / res.timings["decode_wells"] * 1e3
+            decode_rows[name] = (n_wells / wall, decode_ms, n_wells / host_wall)
+            say(f"[decode] {name}: PlateRunner.run from ND2 files, {n_wells} wells in {wall:.3f} s, "
+                f"{n_wells / wall:.3f} wells/s including decode (second run; one batch of "
+                f"{n_wells}, decoded by one prefetch worker); decode {decode_ms:.2f} ms per well "
+                f"wall, {decode_cpu_ms:.2f} ms thread CPU; the runner's device_s "
+                f"{res.timings['device_s'] * 1e3:.1f} ms (staging, program, read back), assemble_s "
+                f"{res.timings['assemble_s'] * 1e3:.1f} ms (tables); from host arrays "
+                f"{host_wall:.3f} s, {n_wells / host_wall:.3f} wells/s; planarize per frame "
+                f"{route}; cells per well {got}")
+            if res.failed_wells or got != want:
+                raise RuntimeError(f"{name} from ND2 files: failed {res.failed_wells}, cells {got} "
+                                   f"against {want} from the staged arrays")
+    finally:
+        shutil.rmtree(nd2_dir, ignore_errors=True)
+
+    # the five real fixtures through the port's reader, segmented on the card
+    # against the pinned golden U-Net masks, with the JAX package's gate
+    for name in GOLDEN_FIXTURES:
+        image = m.microscopy.MicroscopyImage.from_nd2_path(DATA / f"{name}.nd2")
+        frame = np.asarray(image.get_channel_intensities(image.channels[0]))
+        while frame.ndim > 2:
+            frame = frame[frame.shape[0] // 2]  # middle frame / plane
+        got = model.segment(frame.astype(np.float64), cell_diameter_px=FIXTURE_DIAMETERS.get(name))
+        golden = np.load(DATA / "golden_masks" / f"{name}.npz")["unet"]
+        miou, frac = greedy_instance_iou(golden, got)
+        say(f"[golden] {name} {frame.shape}: {int(got.max())} cells against {int(golden.max())} "
+            f"pinned; matched {frac:.3f} (gate 0.8), matched IoU {miou:.3f} (gate 0.85)")
+        if frac < 0.8 or miou < 0.85:
+            raise RuntimeError(f"the U-Net golden gate fails on {name}")
+
+    # -- 9. timing ------------------------------------------------------------------
     reps = 5 if not rehearsal else 1
     program_ms = time_host(lambda: program(staged), reps, sync)
     say(f"[time] plate device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
@@ -883,6 +1112,43 @@ def main(argv: list[str] | None = None) -> int:
         f"{json.dumps({k: round(v, 3) for k, v in parts.items()})} (qc diffusion is inside "
         f"compute_masks)")
 
+    # U-Net plate: the staged well program and its parts, beside the dense
+    # route on the same network outputs
+    program_u = m.plate._build_well_program(unet_config, n_ch, net_u)
+    unet_ms = time_host(lambda: program_u(staged), seg_reps, sync)
+    dense_kw = {k: v for k, v in tail_kw.items() if k != "clear_border_labels"}
+    with torch.inference_mode():
+        fl_u = out_u[..., :2] * 0.2
+        core_u = flows._follow_sparse_core(fl_u, out_u[..., 2] > unet_config.cellprob_threshold,
+                                           unet_config.niter, cap_u)
+        qc_lbl_u = flows._finish_masks_compact(*core_u[:3], fl_u, size, size, 0.0,
+                                               unet_config.max_cells, unet_config.min_size)[0]
+        qc_lbl_u = qc_lbl_u.contiguous()
+        qc_src_u = flows._centre_sources(qc_lbl_u, unet_config.max_cells).contiguous()
+        uparts = {
+            "stretch": time_host(lambda: m.plate._normalised(seg_u), seg_reps, sync),
+            "forward": time_host(lambda: net_u(xn_u[..., None].expand(-1, -1, -1, 3)), seg_reps,
+                                 sync),
+            "compact tail": time_host(
+                lambda: flows.compute_masks_sparse_compact(out_u, cap_u, **tail_kw), seg_reps, sync),
+            "qc diffusion": time_host(lambda: flows_cuda.diffuse(qc_lbl_u, qc_src_u, 128), seg_reps,
+                                      sync),
+            "measure": time_host(lambda: m.plate.measure_unet_masks(
+                cm_u.labels, cm_u.lab_c, cm_u.idx, cm_u.valid, stack_u, unet_config.max_cells),
+                seg_reps, sync),
+            "dense compute_masks": time_host(lambda: flows.compute_masks(out_u, **dense_kw),
+                                             seg_reps, sync),
+        }
+    say(f"[time] U-Net plate device program: {unet_ms:.2f} ms per batch of {n_wells} {size}^2 "
+        f"wells, {n_wells * 1e3 / unet_ms:.3f} wells/s (pre-staged, host clock + synchronize); "
+        f"parts, ms per batch: {json.dumps({k: round(v, 3) for k, v in uparts.items()})} (the qc "
+        f"diffusion is inside the compact tail; the dense compute_masks on the same outputs is "
+        f"the route the compact tail replaces; QC foreground fraction "
+        f"{float((qc_lbl_u > 0).float().mean()):.4f})")
+    if decode_rows:
+        say(f"[time] decode-inclusive wells/s, decode ms per well, wells/s from host arrays: "
+            f"{json.dumps({k: [round(v, 3) for v in r] for k, r in decode_rows.items()})}")
+
     # preprocessing: each configuration from host memory (NumPy in, NumPy
     # out, as users call it) and on the staged stack; ms per operation
     staged_pre = {name: torch.from_numpy(inputs[name]).to(dev) for name in pipes}
@@ -911,6 +1177,10 @@ def main(argv: list[str] | None = None) -> int:
                 "preprocess denoise": lambda: pipes["denoise"](staged_pre["denoise"]),
                 "preprocess local threshold": lambda: pipes["local threshold"](
                     staged_pre["local threshold"]),
+                "unet plate program": lambda: program_u(staged),
+                "unet compact tail": lambda: flows.compute_masks_sparse_compact(
+                    out_u, cap_u, **tail_kw),
+                "unet dense compute_masks": lambda: flows.compute_masks(out_u, **dense_kw),
             }, args.profile)
 
     kernels = []
@@ -1091,7 +1361,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 8. result ------------------------------------------------------------------
+    # -- 10. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -245,3 +245,50 @@ def test_median_filter_launches_the_rank_kernel(cuda_device):
     assert torch.equal(out.cpu(), filters.median_filter(x.cpu(), 12))
     filters.median_filter(x, 9)  # the stacked-view sort: no launch
     assert rank_cuda.launch_counts == {"rank_select": 1}
+
+
+@pytest.mark.gpu
+def test_unet_plate_well_program_on_the_card_matches_the_cpu(cuda_device):
+    """The U-Net plate program on the card launches kernels 4-6, and its
+    compact mask tail, fed the card's network output, equals the CPU's bit
+    for bit."""
+    from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
+    from arcadia_microscopy_tools_tpu_torch.parallel import plate
+
+    config = plate.PlateRunConfig(method="unet", max_cells=256)
+    wells = torch.from_numpy(synthetic_wells(2, 2, 512, 512, 40, seed=3)).to(cuda_device)
+    net = plate.unet_network(load_weights(), cuda_device)
+    for mod in (conv_cuda, gn_cuda, flows_cuda):
+        mod.reset_launch_counts()
+    packed, health, labels = plate._build_well_program(config, 2, net, debug_labels=True)(wells)
+    assert conv_cuda.launch_counts["conv3x3_fused"] == 16
+    assert gn_cuda.launch_counts["lane_moments"] == 1
+    assert flows_cuda.launch_counts["diffuse"] == 1
+    assert health[:, 1].eq(0).all() and labels.amax() > 10
+    with torch.inference_mode():
+        x = plate._normalised(wells[:, 0].float())
+        out = net(x[..., None].expand(-1, -1, -1, 3))
+        cap = plate.foreground_capacity(config, 512, 512)
+        card = flows.compute_masks_sparse_compact(out, cap, max_cells=256)
+        cpu = flows.compute_masks_sparse_compact(out.cpu(), cap, max_cells=256)
+    for name, a, b in zip(card._fields, card, cpu):
+        assert torch.equal(a.cpu(), b), name
+    assert torch.equal(card.labels.cpu(), labels.cpu())
+
+
+@pytest.mark.gpu
+def test_float32_forward_on_the_card_runs_the_plain_blocks(cuda_device):
+    from arcadia_microscopy_tools_tpu_torch.models.unet import UNet, UNetConfig
+    from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
+
+    nets = []
+    for device in (cuda_device, "cpu"):
+        net = UNet(UNetConfig(compute_dtype=torch.float32), generator=torch.Generator())
+        net.load_state_dict(load_weights())
+        nets.append(net.to(device).eval())
+    x = torch.from_numpy(np.random.default_rng(5).random((1, 128, 128, 3), dtype=np.float32))
+    conv_cuda.reset_launch_counts()
+    card = nets[0](x.to(cuda_device)).cpu()
+    assert conv_cuda.launch_counts["conv3x3_fused"] == 0
+    cpu = nets[1](x)
+    assert (card - cpu).abs().max() <= 1e-3 * cpu.abs().max()

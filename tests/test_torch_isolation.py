@@ -35,6 +35,24 @@ import arcadia_microscopy_tools_tpu_torch.models.weights
 import arcadia_microscopy_tools_tpu_torch.testing
 import arcadia_microscopy_tools_tpu_torch.typing
 import arcadia_microscopy_tools_tpu_torch.utils
+import arcadia_microscopy_tools_tpu_torch._native
+import arcadia_microscopy_tools_tpu_torch.core
+import arcadia_microscopy_tools_tpu_torch.core.metadata_structures
+import arcadia_microscopy_tools_tpu_torch.core.microscopy
+import arcadia_microscopy_tools_tpu_torch.io
+import arcadia_microscopy_tools_tpu_torch.io.nd2
+import arcadia_microscopy_tools_tpu_torch.io.nikon
+import arcadia_microscopy_tools_tpu_torch.io.tiles
+import arcadia_microscopy_tools_tpu_torch.channels
+import arcadia_microscopy_tools_tpu_torch.metadata_structures
+import arcadia_microscopy_tools_tpu_torch.microplate
+import arcadia_microscopy_tools_tpu_torch.microscopy
+import arcadia_microscopy_tools_tpu_torch.nikon
+import arcadia_microscopy_tools_tpu_torch.models.flows
+import arcadia_microscopy_tools_tpu_torch.parallel.plate
+from arcadia_microscopy_tools_tpu_torch import MicroscopyImage
+image = MicroscopyImage.from_nd2_path("tests/data/example-multichannel.nd2")
+image.device_intensities("cpu")
 import chip_smoke
 chip_smoke.port_modules()
 arcadia_microscopy_tools_tpu_torch.models.weights.load_weights()

@@ -209,7 +209,7 @@ def test_default_device_is_cuda_or_raises():
 @pytest.mark.parametrize(
     "kwargs, error",
     [
-        ({"method": "unet"}, NotImplementedError),
+        ({"method": "unet"}, None),
         ({"threshold_method": "bogus", "opening_radius": 2}, ValueError),
         ({"threshold_method": "Li"}, ValueError),
         ({"threshold_method": "bogus"}, ValueError),
@@ -217,10 +217,15 @@ def test_default_device_is_cuda_or_raises():
     ],
 )
 def test_unported_configurations_raise(kwargs, error):
-    """Only the plate runner's unet branch is left to port; unknown names
-    raise as in the reference (threshold names are exact there)."""
-    with pytest.raises(error):
-        plate.PlateRunner(plate.PlateRunConfig(**kwargs), device="cpu")
+    """Every method of the reference is ported: method="unet" builds a
+    runner with its U-Net (error None); unknown names raise as in the
+    reference (threshold names are exact there)."""
+    if error is None:
+        runner = plate.PlateRunner(plate.PlateRunConfig(**kwargs), device="cpu")
+        assert runner.network is not None and runner.network.head.device.type == "cpu"
+    else:
+        with pytest.raises(error):
+            plate.PlateRunner(plate.PlateRunConfig(**kwargs), device="cpu")
     for opening in (0, 2):  # every global threshold runs, with or without an opening
         for method in plate.GLOBAL_METHODS:
             plate.PlateRunner(plate.PlateRunConfig(threshold_method=method, opening_radius=opening),

@@ -217,6 +217,13 @@ class TestUNetModule:
         assert abs(w.std().item() / np.sqrt(2 / (9 * 384)) - 1) < 0.02
 
     def test_forward_on_the_card_refuses_float32(self):
-        net = UNet(UNetConfig(compute_dtype=torch.float32))
-        with pytest.raises(NotImplementedError):
-            net(torch.zeros(1, 16, 16, 3, device="meta"))
+        """Off the CPU the float32 forward is no longer refused: it runs the
+        kernels' plain versions (as the JAX package runs its float32 forward
+        outside the bfloat16 Pallas conv) and launches no kernel. A device
+        without data (meta) checks the dispatch and the output's shape."""
+        net = UNet(UNetConfig(compute_dtype=torch.float32)).to("meta")
+        conv_cuda.reset_launch_counts()
+        gn_cuda.reset_launch_counts()
+        out = net(torch.zeros(1, 16, 16, 3, device="meta"))
+        assert out.shape == (1, 16, 16, 3) and out.dtype == torch.float32
+        assert conv_cuda.launch_counts["conv3x3_fused"] == gn_cuda.launch_counts["lane_moments"] == 0
