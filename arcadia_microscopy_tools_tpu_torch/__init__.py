@@ -21,7 +21,13 @@ This package runs these paths in PyTorch:
   of `ImageOperation`s - Gaussian, median and rank filters, rolling ball,
   global and local thresholds, binary morphology, labeling - with the
   rank selection of median / rank filters over windows above 9 as a CUDA
-  kernel (`csrc/rank_select.cu`).
+  kernel (`csrc/rank_select.cu`);
+- per-cell analysis of a user's mask, `masks.SegmentationMask` - labeling
+  with the CC kernels, border clearing, relabeling, and the morphology and
+  intensity measurements on the device; outlines, hulls and moments on the
+  host (`measure.py`);
+- fluorescence overlays, `create_overlay` and `overlay_channels`, as
+  float32 tensor arithmetic on the device.
 
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 on CPU tensors the kernels' plain PyTorch versions run instead.
@@ -40,12 +46,15 @@ from .ops.labeling import component_roots, label
 from .ops.pipeline import ImageOperation, Pipeline
 from .ops.regionprops import measure_compacted
 from .parallel.plate import PlateResults, PlateRunConfig, PlateRunner
+from .viz.blending import BlendMode, Layer, create_overlay, overlay_channels
 
 __version__ = "0.4.0"
 
 __all__ = [
+    "BlendMode",
     "Channel",
     "ImageOperation",
+    "Layer",
     "MetadataWarning",
     "MicroplateLayout",
     "MicroscopyImage",
@@ -56,7 +65,9 @@ __all__ = [
     "SegmentationModel",
     "SegmentationWarning",
     "component_roots",
+    "create_overlay",
     "fused_classical_mask",
     "label",
     "measure_compacted",
+    "overlay_channels",
 ]

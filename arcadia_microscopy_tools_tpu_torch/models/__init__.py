@@ -1,4 +1,9 @@
 """The deep segmentation path: U-Net forward (models/unet.py) on the fused
 conv and GroupNorm-moments kernels, flow tracking and flow-error QC
-(models/flows.py) on the diffusion kernel, and the `SegmentationModel`
-wrapper."""
+(models/flows.py) on the diffusion kernel, the `SegmentationModel`
+wrapper, and synthetic cell images (models/synthetic.py)."""
+
+from .segmentation import SegmentationModel
+from .synthetic import synthesize_cells
+
+__all__ = ["SegmentationModel", "synthesize_cells"]

@@ -21,7 +21,10 @@ on the host.
 
 `relabel_sequential` and `relabel_sequential_filtered` renumber label
 images per image of a batch with one stable sort each, as the JAX
-functions do.
+functions do. `clear_border`, `num_labels` and `compact_labels` act on one
+(H, W) label image. Label values keep their integer dtype: values at or
+above 2^31 stay distinct labels, where the JAX package's int32 arithmetic
+wraps them.
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ import torch.nn.functional as F
 from .cc_cuda import CC_BLOCK, local_cc, local_resweep, neighbor_min, neighbor_offsets
 
 __all__ = [
+    "clear_border",
+    "compact_labels",
     "component_roots",
     "label",
+    "num_labels",
     "relabel_sequential",
     "relabel_sequential_filtered",
     "resweep_seeds",
@@ -283,3 +289,33 @@ def relabel_sequential_filtered(label_image: torch.Tensor, min_size: int) -> tor
     ranks = torch.where(keep, torch.cumsum((is_new & keep).to(torch.int32), 1), 0)
     out = _scatter_ranks(ranks.to(torch.int32), pos, lbl.shape)
     return out[0] if single else out
+
+
+def clear_border(label_image: torch.Tensor) -> torch.Tensor:
+    """Zero every label that occurs on the outer rows or columns of a
+    (H, W) label image (`skimage.segmentation.clear_border` for label
+    inputs). Raises TypeError for a bool mask: label it first."""
+    if label_image.dtype == torch.bool:
+        raise TypeError("clear_border expects an integer label image; call label() first")
+    lbl = label_image
+    border = torch.cat([lbl[0], lbl[-1], lbl[:, 0], lbl[:, -1]]).unique()
+    return torch.where(torch.isin(lbl, border) & (lbl > 0), 0, lbl)
+
+
+def num_labels(label_image: torch.Tensor) -> torch.Tensor:
+    """Maximum label value as a 0-dim tensor on the image's device: the
+    number of cells of a consecutively labeled image; a sparse label set
+    (after `clear_border`) counts its gaps."""
+    return label_image.max()
+
+
+def compact_labels(label_image: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """Relabel to consecutive 1..N for labels that lie in [0, max_labels]
+    (others are clipped into that range first) without a sort: count each
+    value, then map through the running count of the values present.
+    Returns int32."""
+    clipped = label_image.to(torch.int64).clamp(0, max_labels)
+    present = torch.bincount(clipped.reshape(-1), minlength=max_labels + 1)[1:] > 0
+    ranks = torch.cumsum(present.to(torch.int32), 0, dtype=torch.int32)
+    mapping = F.pad(torch.where(present, ranks, 0), (1, 0))
+    return mapping[clipped]

@@ -1,7 +1,10 @@
-"""Per-cell measurements over a foreground-compacted pixel set.
+"""Per-cell measurements of a label image or a foreground-compacted pixel
+set.
 
-Counterpart of `measure_compacted` in
-`arcadia_microscopy_tools_tpu/ops/regionprops.py`, batched over images.
+Counterpart of `measure_labels`, `measure_intensity`,
+`measure_intensity_stack` and `measure_compacted` in
+`arcadia_microscopy_tools_tpu/ops/regionprops.py`; `measure_compacted` is
+batched over images, the other three take one (H, W) label image.
 Conventions follow skimage: centroids are coordinate means (row = y,
 col = x); axis lengths, eccentricity and orientation come from the central
 second moments; perimeter uses skimage's weighted border-pixel categories
@@ -21,7 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["measure_compacted"]
+from .segment_reduce import segment_max, segment_min, segment_sums, table_lookup
+
+__all__ = ["measure_compacted", "measure_intensity", "measure_intensity_stack", "measure_labels"]
 
 _BIG = torch.finfo(torch.float32).max
 
@@ -247,3 +252,122 @@ def measure_compacted(
         for ci in range(c)
     }
     return props, intensity
+
+
+def _label_segments(label_image: torch.Tensor, max_cells: int):
+    """(1, H*W) segment ids of an (H, W) label image clipped into
+    [0, max_cells] (labels above share the last slot) and the foreground
+    mask that leaves the background out of every reduction."""
+    seg = label_image.reshape(1, -1).to(torch.int64).clamp(0, max_cells)
+    return seg, seg > 0
+
+
+def measure_labels(label_image: torch.Tensor, max_cells: int) -> dict[str, torch.Tensor]:
+    """Morphological properties for labels 1..max_cells of an (H, W) label
+    image (background 0), on the image's device.
+
+    Measurements for label k land at index k - 1. Labels above max_cells
+    are clipped into the last slot, whose `valid` entry is then False (its
+    statistics would merge unrelated cells).
+
+    Returns:
+        Dict of (max_cells,) tensors: label, valid, area, centroid_y/x,
+        perimeter, eccentricity, axis_major_length, axis_minor_length,
+        orientation, bbox_min_row/col, bbox_max_row/col (exclusive) and
+        extent; integer columns int32, `valid` bool, the rest float32.
+    """
+    h, w = label_image.shape
+    nseg = max_cells + 1
+    dev = label_image.device
+    seg, fg = _label_segments(label_image, max_cells)
+    rows = torch.arange(h, device=dev).repeat_interleave(w)[None]
+    cols = torch.arange(w, device=dev).repeat(h)[None]
+    yf, xf = rows.to(torch.float64), cols.to(torch.float64)
+
+    # pass 1: zeroth and first moments
+    area, sum_y, sum_x = segment_sums(torch.stack([fg.double(), yf, xf], 1), seg, nseg, fg)[0]
+    n = area.clamp_min(1.0)
+    cy, cx = sum_y / n, sum_x / n
+
+    # pass 2: centred second moments and the perimeter weights
+    dy = yf - table_lookup(cy[None], seg)
+    dx = xf - table_lookup(cx[None], seg)
+    perim_w = _perimeter_contribution(label_image[None]).reshape(1, -1)
+    s_yy, s_xx, s_xy, perimeter = segment_sums(
+        torch.stack([dy * dy, dx * dx, dy * dx, perim_w], 1), seg, nseg, fg
+    )[0]
+    eccentricity, axis_major, axis_minor, orientation = _shape_props(n, s_yy, s_xx, s_xy)
+
+    has = area > 0
+    big = max(h, w)
+    minr = torch.where(has, segment_min(rows, seg, nseg, big, fg)[0], 0)
+    minc = torch.where(has, segment_min(cols, seg, nseg, big, fg)[0], 0)
+    maxr = torch.where(has, segment_max(rows, seg, nseg, -1, fg)[0] + 1, 0)
+    maxc = torch.where(has, segment_max(cols, seg, nseg, -1, fg)[0] + 1, 0)
+    extent = area / ((maxr - minr) * (maxc - minc)).clamp_min(1)
+
+    # the clipped slot absorbs every label above max_cells: mark it invalid
+    # when that happened rather than expose merged statistics as one cell
+    overflowed = label_image.max() > max_cells
+    valid = has & ~(overflowed & (torch.arange(nseg, device=dev) == max_cells))
+
+    def cell(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        return x[1:].to(dtype)  # drop the background slot
+
+    return {
+        "label": torch.arange(1, max_cells + 1, dtype=torch.int32, device=dev),
+        "valid": valid[1:],
+        "area": cell(area),
+        "centroid_y": cell(cy),
+        "centroid_x": cell(cx),
+        "perimeter": cell(perimeter),
+        "eccentricity": cell(eccentricity),
+        "axis_major_length": cell(axis_major),
+        "axis_minor_length": cell(axis_minor),
+        "orientation": cell(orientation),
+        "bbox_min_row": cell(minr, torch.int32),
+        "bbox_min_col": cell(minc, torch.int32),
+        "bbox_max_row": cell(maxr, torch.int32),
+        "bbox_max_col": cell(maxc, torch.int32),
+        "extent": cell(extent),
+    }
+
+
+def measure_intensity_stack(
+    label_image: torch.Tensor, intensity_stack: torch.Tensor, max_cells: int
+) -> dict[int, dict[str, torch.Tensor]]:
+    """Per-label intensity statistics of a (C, H, W) channel stack under an
+    (H, W) label image: {channel index: {stat: (max_cells,) float32}} with
+    intensity_mean, intensity_max, intensity_min and intensity_std (the
+    population standard deviation, from deviations around each label's
+    mean). Empty slots read inf as their minimum and -inf as their maximum.
+    Labels above max_cells share the last slot, as in `measure_labels`."""
+    c = intensity_stack.shape[0]
+    nseg = max_cells + 1
+    seg, fg = _label_segments(label_image, max_cells)
+    vals = intensity_stack.reshape(1, c, -1).to(torch.float32)
+
+    sums = segment_sums(torch.cat([fg.double()[:, None], vals], 1), seg, nseg, fg)[0]
+    n = sums[0].clamp_min(1.0)
+    mean = sums[1:] / n  # (C, S)
+    seg_c = seg.expand(c, -1)
+    dev_c = vals[0].double() - table_lookup(mean, seg_c)
+    var = (segment_sums((dev_c * dev_c)[None], seg, nseg, fg)[0] / n).clamp_min(0.0)
+    vmin = segment_min(vals[0], seg_c, nseg, float("inf"), fg.expand(c, -1))
+    vmax = segment_max(vals[0], seg_c, nseg, float("-inf"), fg.expand(c, -1))
+    return {
+        ci: {
+            "intensity_mean": mean[ci, 1:].to(torch.float32),
+            "intensity_max": vmax[ci, 1:],
+            "intensity_min": vmin[ci, 1:],
+            "intensity_std": torch.sqrt(var[ci, 1:]).to(torch.float32),
+        }
+        for ci in range(c)
+    }
+
+
+def measure_intensity(
+    label_image: torch.Tensor, intensity_image: torch.Tensor, max_cells: int
+) -> dict[str, torch.Tensor]:
+    """`measure_intensity_stack` for one (H, W) channel."""
+    return measure_intensity_stack(label_image, intensity_image[None], max_cells)[0]

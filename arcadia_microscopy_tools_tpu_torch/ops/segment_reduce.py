@@ -1,19 +1,21 @@
 """Per-segment reductions and table lookups, batched over images.
 
-Counterpart of the three functions of
-`arcadia_microscopy_tools_tpu/ops/segment_reduce.py` that the segmentation
-path calls. The JAX package computes them as one-hot matmuls with bf16
-hi/lo splits because scatters and gathers are slow on the TPU; here they
-are what they compute: float64 `index_add_` for sums (exact for the counts
-and coordinate sums the path takes), `scatter_reduce` for minimums, and
-plain indexing for lookups.
+Counterpart of `arcadia_microscopy_tools_tpu/ops/segment_reduce.py`. The
+JAX package computes its reductions as one-hot matmuls with bf16 hi/lo
+splits because scatters and gathers are slow on the TPU; here they are what
+they compute: float64 `index_add_` for sums (exact for the counts and
+coordinate sums the paths take), `scatter_reduce` for minimums and
+maximums, and plain indexing for lookups. The JAX package's centred
+moments and variances (`segment_central_moments`, `segment_variances`) are
+a second `segment_sums` pass over deviations from the per-segment means,
+looked up with `table_lookup`.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_min", "segment_sums", "table_lookup"]
+__all__ = ["segment_max", "segment_min", "segment_sums", "table_lookup"]
 
 
 def _flat_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -44,6 +46,17 @@ def segment_sums(
     return out.reshape(b, num_segments, q).permute(0, 2, 1)
 
 
+def _segment_extreme(values, segment_ids, num_segments, empty, where, how) -> torch.Tensor:
+    b = values.shape[0]
+    flat, vals = _flat_ids(segment_ids, num_segments), values.reshape(-1)
+    if where is not None:
+        keep = where.reshape(-1)
+        flat, vals = flat[keep], vals[keep]
+    out = torch.full((b * num_segments,), empty, dtype=values.dtype, device=values.device)
+    out.scatter_reduce_(0, flat, vals, how)
+    return out.reshape(b, num_segments)
+
+
 def segment_min(
     values: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -52,16 +65,21 @@ def segment_min(
     where: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Minimum of (B, N) `values` over each image's segments: (B,
-    num_segments) in values' dtype, `empty` where a segment has no member;
-    `where` as in `segment_sums`."""
-    b = values.shape[0]
-    flat, vals = _flat_ids(segment_ids, num_segments), values.reshape(-1)
-    if where is not None:
-        keep = where.reshape(-1)
-        flat, vals = flat[keep], vals[keep]
-    out = torch.full((b * num_segments,), empty, dtype=values.dtype, device=values.device)
-    out.scatter_reduce_(0, flat, vals, "amin")
-    return out.reshape(b, num_segments)
+    num_segments) in values' dtype, `empty` where a segment has no member
+    (`empty` must not be below any value); `where` as in `segment_sums`."""
+    return _segment_extreme(values, segment_ids, num_segments, empty, where, "amin")
+
+
+def segment_max(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    empty,
+    where: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Maximum of (B, N) `values` over each image's segments, as
+    `segment_min` (`empty` must not be above any value)."""
+    return _segment_extreme(values, segment_ids, num_segments, empty, where, "amax")
 
 
 def table_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -222,8 +222,9 @@ def _staged_mask(seg_img: torch.Tensor, config: PlateRunConfig) -> torch.Tensor:
     return mask
 
 
-def unet_network(unet_params=None, device: str | torch.device = "cpu"):
-    """The plate runner's U-Net (bfloat16 forward) on `device`.
+def unet_network(unet_params=None, device: str | torch.device | None = None):
+    """The plate runner's U-Net (bfloat16 forward) on `device` (None means
+    the CUDA card, and raises when there is none).
 
     `unet_params` is the JAX package's parameter tree as numpy arrays (a
     nested dict / list, or flattened to dotted keys as in the `.npz`
@@ -234,6 +235,7 @@ def unet_network(unet_params=None, device: str | torch.device = "cpu"):
     from ..models.unet import UNet, UNetConfig
     from ..models.weights import flatten_tree, state_dict_from_tree
 
+    device = resolve_device(device)
     if unet_params is None:
         net = UNet(UNetConfig(), generator=torch.Generator().manual_seed(0))
     else:

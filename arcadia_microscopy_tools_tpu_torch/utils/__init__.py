@@ -1,6 +1,31 @@
-"""Progress utilities (`get_tqdm`, copied from the JAX package's `utils/__init__.py`)."""
+"""Logging and progress utilities (`configure_logging` and `get_tqdm`,
+copied from the JAX package's `utils/__init__.py`); `utils.profiling` has
+the stage timer and the device trace."""
 
 from __future__ import annotations
+
+import logging
+
+__all__ = ["configure_logging", "get_tqdm"]
+
+
+def configure_logging(verbose: bool) -> None:
+    """Configure the Python logging system with optional verbosity.
+
+    Sets up a basic logging configuration with a standardized format for
+    timestamps, logger names, and log levels.
+
+    Args:
+        verbose:
+            If True, sets logging level to DEBUG to show all messages.
+            If False, sets logging level to INFO which filters out DEBUG messages.
+    """
+    log_level = logging.DEBUG if verbose else logging.INFO
+    logging.basicConfig(
+        level=log_level,
+        format="%(asctime)s - %(name)s - %(levelname)s :: %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S",
+    )
 
 
 def get_tqdm():

@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch port: the classical and U-Net plate
-paths (staged, and from ND2 files), the deep segmentation path and the
-preprocessing `Pipeline`.
+paths (staged, and from ND2 files), the deep segmentation path, the
+preprocessing `Pipeline`, and the per-cell analysis and overlays of a
+well.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -63,7 +64,16 @@ Phases, each printing its lines:
    decode, decode ms per well, the planarize that ran); the five real ND2
    fixtures decoded by the port's reader and segmented on the card against
    the pinned golden U-Net masks (matched >= 0.8, matched IoU >= 0.85);
-9. timing - plate wells/s and per-stage ms; U-Net plate wells/s split into
+9. per-cell analysis - well 0's channel 0 through the cell segmentation
+   example's percentile rescale and Otsu threshold, then
+   `SegmentationMask` with the four channels on the card: the default
+   table, every supported column, the outlines and `filter`, with the CC
+   kernels' launch counts, each held against the same calls on the CPU
+   (label images bit for bit, integer and host columns equal, float
+   columns within 1e-5); the fluorescence example's two overlays on the
+   well against the CPU within 1e-6, and their out-of-range warnings on
+   the card;
+10. timing - plate wells/s and per-stage ms; U-Net plate wells/s split into
    the stretch, the forward, the compact mask tail (of which the QC
    diffusion) and the measurement, beside the dense `compute_masks` on the
    same outputs; segmentation images/s split into host preparation,
@@ -72,8 +82,9 @@ Phases, each printing its lines:
    ms per operation; each kernel's time beside its bound, its plain
    version's time and, for the conv, cuDNN's bf16 `F.conv2d` and, for the
    rank selection, `torch.kthvalue` over the unfolded windows, on the same
-   shapes;
-10. the `kernels` JSON line, then the card's name and power limit, then
+   shapes; the per-cell analysis of one well in ms per stage (label, device
+   measurement, intensity stack, host columns, all columns, overlays);
+11. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -83,11 +94,12 @@ control flow); it prints no device result and exits non-zero.
 `--compare-with FILE` reads the output of an earlier run (the parent
 commit's `chip_smoke.py`, run in the same chip call) and prints each
 kernel's earlier time beside this run's, and each conv call's.
-`--profile DIR` adds a `torch.profiler` trace of one forward and one mask
-reconstruction of the segmentation batch, one batch of each preprocessing
-configuration, one U-Net plate batch, its compact mask tail and the dense
-`compute_masks` on the same outputs: device time by kernel and the card's
-idle share, printed and written to DIR/profile_segment.txt.
+`--profile DIR` adds a `torch.profiler` trace of one default per-cell table
+of well 0, one forward and one mask reconstruction of the segmentation
+batch, one batch of each preprocessing configuration, one U-Net plate
+batch, its compact mask tail and the dense `compute_masks` on the same
+outputs: device time by kernel and the card's idle share, printed and
+written to DIR/profile_segment.txt.
 """
 
 from __future__ import annotations
@@ -101,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -209,7 +222,7 @@ def port_modules() -> SimpleNamespace:
     """Every module of the port this script drives (imported here, so that a
     machine without a card fails at the device check before any of them)."""
     import arcadia_microscopy_tools_tpu_torch as pkg
-    from arcadia_microscopy_tools_tpu_torch import _build, _native, testing
+    from arcadia_microscopy_tools_tpu_torch import _build, _native, masks, operations, testing
     from arcadia_microscopy_tools_tpu_torch.core import microplate, microscopy
     from arcadia_microscopy_tools_tpu_torch.io import nd2, nikon
     from arcadia_microscopy_tools_tpu_torch.models import (
@@ -224,12 +237,14 @@ def port_modules() -> SimpleNamespace:
     from arcadia_microscopy_tools_tpu_torch.ops import labeling, morphology, rank_cuda
     from arcadia_microscopy_tools_tpu_torch.ops import regionprops, threshold
     from arcadia_microscopy_tools_tpu_torch.parallel import plate
+    from arcadia_microscopy_tools_tpu_torch.utils import profiling
+    from arcadia_microscopy_tools_tpu_torch.viz import blending
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
-        _build, _native, testing, microplate, microscopy, nd2, nikon, conv_cuda, flows,
-        flows_cuda, gn_cuda, unet, weights,
+        _build, _native, masks, operations, testing, microplate, microscopy, nd2, nikon,
+        conv_cuda, flows, flows_cuda, gn_cuda, unet, weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
-        threshold, plate,
+        threshold, plate, profiling, blending,
     )}, pkg=pkg)
 
 
@@ -474,6 +489,58 @@ def compare_measurements(props_d, int_d, props_c, int_c) -> float:
             rel = (a[fin] - b[fin]).abs() / (1e-4 + b[fin].abs())
             worst = max(worst, float(rel.max()))
     return worst
+
+
+# per-cell columns that the host computes from the label image (measure.py)
+CELL_HOST_COLUMNS = ("area_convex", "solidity", "feret_diameter_max", "moments", "inertia_tensor")
+
+
+def compare_cell_tables(card, cpu) -> float:
+    """A `SegmentationMask` on the card against the same call on the CPU:
+    label images equal bit for bit; integer columns, the host columns and
+    intensity extrema equal; orientation modulo pi on elongated cells away
+    from moment ties; other float columns rtol 1e-5 (morphology also atol
+    1e-4). Returns the worst relative difference of the float columns
+    (1e-4 floor on the scale)."""
+    if not np.array_equal(card.label_image, cpu.label_image):
+        raise RuntimeError("the card's label image differs from the CPU's")
+    got, want = card.cell_properties, cpu.cell_properties
+    if list(got) != list(want):
+        raise RuntimeError("the card's table has other columns than the CPU's")
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if w.dtype.kind in "iub":
+            same = np.array_equal(g, w)
+        elif name.startswith(CELL_HOST_COLUMNS + ("intensity_min", "intensity_max")):
+            same = np.array_equal(g, w, equal_nan=True)
+        elif name == "orientation":
+            d = np.abs(g - w)
+            d = np.minimum(d, np.pi - d)
+            ties = (np.abs(np.abs(g) - np.pi / 4) < 1e-4) & (np.abs(np.abs(w) - np.pi / 4) < 1e-4)
+            same = not (d[(want["eccentricity"] > 0.3) & ~ties] > 1e-4).any()
+        else:
+            atol = 0.0 if name.startswith("intensity_") else 1e-4
+            same = np.allclose(g, w, rtol=1e-5, atol=atol)
+            worst = max(worst, float((np.abs(g - w) / (1e-4 + np.abs(w))).max(initial=0.0)))
+        if not same:
+            raise RuntimeError(f"per-cell column {name} on the card differs from the CPU")
+    return worst
+
+
+def overlays(m, norm: list, channels: list, device) -> tuple:
+    """The fluorescence example's two overlays of a well: channels 1-3
+    added onto channel 0, and three layers of mixed opacity, anchor and
+    blend mode."""
+    blend = m.blending
+    added = blend.overlay_channels(norm[0], dict(zip(channels[1:], norm[1:])),
+                                   blend_mode=blend.BlendMode.ADDITIVE, device=device)
+    layers = [
+        blend.Layer(channels[1], norm[1], opacity=0.9),
+        blend.Layer(channels[2], norm[2], opacity=0.7, blend_mode=blend.BlendMode.ADDITIVE),
+        blend.Layer(channels[3], norm[3], opacity=0.5, zero_transparent=False),
+    ]
+    return added, blend.create_overlay(norm[0], layers, device=device)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1076,7 +1143,77 @@ def main(argv: list[str] | None = None) -> int:
         if frac < 0.8 or miou < 0.85:
             raise RuntimeError(f"the U-Net golden gate fails on {name}")
 
-    # -- 9. timing ------------------------------------------------------------------
+    # -- 9. per-cell analysis and overlays of one well ------------------------------------
+    # the cell segmentation example's classical path on well 0: percentile
+    # rescale and Otsu on channel 0, then SegmentationMask with the four
+    # channels; the fluorescence example's overlays on the same well
+    from arcadia_microscopy_tools_tpu_torch.core.channels import CY5, DAPI, FITC, TRITC
+
+    cell_channels = [DAPI, FITC, TRITC, CY5]
+    well0 = wells[0]
+    norm0 = m.operations.rescale_by_percentile(well0[0], (1, 99), device=dev)
+    cell_mask = m.operations.apply_threshold((norm0 * 65535).astype(np.uint16), "otsu", device=dev)
+    cell_planes = dict(zip(cell_channels, well0))
+    all_names = list(m.masks.SUPPORTED_PROPERTY_NAMES)
+
+    def cell_tables(device) -> tuple:
+        default = m.masks.SegmentationMask(cell_mask, cell_planes, device=device)
+        every = m.masks.SegmentationMask(cell_mask, cell_planes, property_names=all_names,
+                                         device=device)
+        _ = default.cell_properties, every.cell_properties, every.cell_outlines
+        return default, every, every.filter("area", min_value=60)
+
+    reset_all_counts(m)
+    t0 = time.perf_counter()
+    card_cells = cell_tables(dev)
+    sync()
+    cell_s = time.perf_counter() - t0
+    cell_launches = all_counts(m)
+    n_cells = card_cells[0].num_cells
+    say(f"[cells] SegmentationMask of well 0 ({size}^2, 4 channels, mask foreground "
+        f"{float(cell_mask.mean()):.4f}): {n_cells} cells, {card_cells[2].num_cells} with area "
+        f">= 60; default table, all {len(all_names)} columns, outlines and filter in "
+        f"{cell_s:.3f} s (first call); launches {cell_launches}")
+    if not rehearsal and not (cell_launches["local_cc"] >= 1 and cell_launches["local_resweep"] >= 1):
+        raise RuntimeError(f"SegmentationMask did not launch both CC kernels: {cell_launches}")
+    if not lo <= n_cells <= hi:
+        raise RuntimeError(f"implausible cell count {n_cells} for {blobs} blobs")
+    default_table = card_cells[0].cell_properties
+    if not all(len(v) == n_cells and np.isfinite(v).all() for v in default_table.values()):
+        raise RuntimeError("the default per-cell table has a column of another length or "
+                           "non-finite values")
+    cpu_cells = cell_tables("cpu")
+    worst = max(compare_cell_tables(a, b) for a, b in zip(card_cells, cpu_cells))
+    outlines_d, outlines_c = card_cells[1].cell_outlines, cpu_cells[1].cell_outlines
+    if len(outlines_d) != len(outlines_c) or not all(
+        np.array_equal(a, b) for a, b in zip(outlines_d, outlines_c)
+    ):
+        raise RuntimeError("cell outlines on the card differ from the CPU")
+    say(f"[check] per-cell tables of well 0 (default, all columns, filtered) on the card "
+        f"against the CPU: label images, integer and host columns and outlines equal; worst "
+        f"float relative difference {worst:.2e}")
+
+    norm = [m.operations.rescale_by_percentile(p, (1, 99.5), device=dev) for p in well0]
+    ov_d, ov_c = overlays(m, norm, cell_channels, dev), overlays(m, norm, cell_channels, "cpu")
+    ov_err = max(float(np.abs(a - b).max()) for a, b in zip(ov_d, ov_c))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        bright = m.blending.Layer(FITC, torch.from_numpy(norm[1]).to(dev) * 2.0)
+        on_dev = m.blending.create_overlay(torch.from_numpy(norm[0]).to(dev) * 1.5 - 0.1, [bright])
+    warned = [str(w.message).split(" (min")[0] for w in caught]
+    say(f"[check] overlays of well 0 (overlay_channels additive, 3 channels; create_overlay, 3 "
+        f"layers of mixed modes) on the card against the CPU: max abs difference {ov_err:.2e} "
+        f"(limit 1e-6); out-of-range inputs on the card warned {warned}")
+    if ov_err > 1e-6:
+        raise RuntimeError("overlays on the card differ from the CPU beyond 1e-6")
+    if sorted(warned) != ["Background has values outside [0, 1]",
+                          "Layer 'FITC' has intensity values outside [0, 1]"]:
+        raise RuntimeError(f"the overlay's out-of-range warnings did not fire: {warned}")
+    if on_dev.device.type != dev.type or not bool(((on_dev >= 0) & (on_dev <= 1)).all()):
+        raise RuntimeError("a tensor background's overlay left its device or [0, 1]")
+    del cpu_cells, ov_d, ov_c, on_dev
+
+    # -- 10. timing ------------------------------------------------------------------
     reps = 5 if not rehearsal else 1
     program_ms = time_host(lambda: program(staged), reps, sync)
     say(f"[time] plate device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
@@ -1167,9 +1304,40 @@ def main(argv: list[str] | None = None) -> int:
             f"over the batch: {json.dumps(op_ms)} (host clock + synchronize)")
         del frames
 
+    # per-cell analysis: warm calls (phase 9 was the first), each stage ended
+    # by a synchronize of the card; the default table's stages in order
+    timer = m.profiling.StageTimer()
+    fence = torch.empty(0, device=dev)  # `block=fence` synchronises the card
+    cell_reps = 3 if not rehearsal else 1
+    for _ in range(cell_reps):
+        sm = m.masks.SegmentationMask(cell_mask, cell_planes, device=dev)
+        with timer.stage("label", block=fence):
+            sm._processed
+        with timer.stage("device measurement", block=fence):
+            sm._device_measurements
+        with timer.stage("intensity stack", block=fence):
+            sm._intensity_measurements
+        with timer.stage("host columns", block=fence):
+            sm.cell_properties
+        with timer.stage("all columns", block=fence):
+            m.masks.SegmentationMask(cell_mask, cell_planes, property_names=all_names,
+                                     device=dev).cell_properties
+        with timer.stage("overlays", block=fence):
+            overlays(m, norm, cell_channels, dev)
+    cell_ms = {k: round(v * 1e3 / cell_reps, 3) for k, v in timer.totals.items()}
+    cell_ms["default table"] = round(sum(cell_ms[k] for k in (
+        "label", "device measurement", "intensity stack", "host columns")), 3)
+    say(f"[time] per-cell analysis of one {size}^2 4-channel well, {n_cells} cells: ms per "
+        f"well {json.dumps(cell_ms)} (mean of {cell_reps} warm calls, host clock + synchronize; "
+        f"'default table' is SegmentationMask + the default cell_properties, the sum of label, "
+        f"device measurement, intensity stack and host columns; 'overlays' is overlay_channels "
+        f"and create_overlay from host arrays); card: {smi}")
+
     if args.profile and not rehearsal:
         with torch.inference_mode():
             profile_windows({
+                "per-cell cell_properties": lambda: m.masks.SegmentationMask(
+                    cell_mask, cell_planes, device=dev).cell_properties,
                 "forward": lambda: model.network(x_seg),
                 "compute_masks": lambda: flows.compute_masks(
                     out, flow_threshold=float(params["flow_threshold"]), niter=200,
@@ -1229,7 +1397,7 @@ def main(argv: list[str] | None = None) -> int:
             f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: "
             f"{int(sweeps.sum())} tile sweeps, mean {float(sweeps.float().mean()):.1f}, max "
             f"{int(sweeps.max())}); launches: plate path {plate_launches[name]}, segmentation "
-            f"path {seg_launches[name]}")
+            f"path {seg_launches[name]}, per-cell path {cell_launches[name]}")
 
     # fused conv: the 16 calls of one forward, each timed at its shape
     tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, bound=0.0)
@@ -1361,7 +1529,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 10. result -----------------------------------------------------------------
+    # -- 11. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -50,6 +50,16 @@ import arcadia_microscopy_tools_tpu_torch.microscopy
 import arcadia_microscopy_tools_tpu_torch.nikon
 import arcadia_microscopy_tools_tpu_torch.models.flows
 import arcadia_microscopy_tools_tpu_torch.parallel.plate
+import arcadia_microscopy_tools_tpu_torch.ops
+import arcadia_microscopy_tools_tpu_torch.masks
+import arcadia_microscopy_tools_tpu_torch.measure
+import arcadia_microscopy_tools_tpu_torch.blending
+import arcadia_microscopy_tools_tpu_torch.viz
+import arcadia_microscopy_tools_tpu_torch.viz.blending
+import arcadia_microscopy_tools_tpu_torch.utils.profiling
+import arcadia_microscopy_tools_tpu_torch.models
+import arcadia_microscopy_tools_tpu_torch.models.synthetic
+arcadia_microscopy_tools_tpu_torch.models.synthetic.load_fixture_stats()
 from arcadia_microscopy_tools_tpu_torch import MicroscopyImage
 image = MicroscopyImage.from_nd2_path("tests/data/example-multichannel.nd2")
 image.device_intensities("cpu")
