@@ -5,6 +5,8 @@ This package runs these paths in PyTorch:
 
 - ND2 ingest: `load_nd2` and `MicroscopyImage.from_nd2_path` (host code,
   with the repository's C++ planarize where `_native.build()` built it);
+- Leica LIF ingest: `list_image_names`, `load_lif_image` and
+  `MicroscopyImage.from_lif_path` (host code);
 - the plate runner, `PlateRunner.run` from wells to per-cell tables, by
   either method: "classical" - DoG, percentile rescale and a histogram
   threshold, two-phase connected components, foreground compaction,
@@ -27,7 +29,11 @@ This package runs these paths in PyTorch:
   intensity measurements on the device; outlines, hulls and moments on the
   host (`measure.py`);
 - fluorescence overlays, `create_overlay` and `overlay_channels`, as
-  float32 tensor arithmetic on the device.
+  float32 tensor arithmetic on the device;
+- the U-Net trainer, `models.train` (`python -m
+  arcadia_microscopy_tools_tpu_torch.models.train`): synthetic batches,
+  flow targets on the QC diffusion kernel, and a differentiable PyTorch
+  forward under autograd.
 
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 on CPU tensors the kernels' plain PyTorch versions run instead.

@@ -14,8 +14,7 @@ intensities may be host (NumPy) or device (torch) resident, and
 `device_intensities()` copies them to a device once per device - every
 later channel slice reuses the cached tensor instead of re-crossing the
 host->device boundary. The device is the CUDA card unless the caller names
-another; without a card it raises unless the caller passes "cpu". LIF
-ingest is not ported yet (`from_lif_path` raises).
+another; without a card it raises unless the caller passes "cpu".
 """
 
 from __future__ import annotations
@@ -180,15 +179,19 @@ class MicroscopyImage:
         channels: list[Channel] | None = None,
         sample_metadata: dict[str, Any] | None = None,
     ) -> MicroscopyImage:
-        """Load one image from a Leica LIF container: not ported yet (the LIF
-        ingest is item 4 of queue 1 in ROADMAP.md).
+        """Load one image from a Leica LIF container (see `io.leica`).
 
-        Raises:
-            NotImplementedError: always.
+        Args:
+            lif_path: The .lif file to read.
+            image_name: Which image in the container (LIF files hold many);
+                see `io.leica.list_image_names`.
+            channels: Override the automatic channel identification.
+            sample_metadata: Experimenter annotations to attach.
         """
-        raise NotImplementedError(
-            "LIF ingest is not ported yet (ROADMAP.md queue 1, item 4: LIF ingest)"
-        )
+        from ..io.leica import load_lif_image
+
+        pixels, instrument = load_lif_image(lif_path, image_name, channels)
+        return cls(pixels, Metadata(instrument, sample_metadata))
 
     # -- shape / channel introspection ---------------------------------------------
 

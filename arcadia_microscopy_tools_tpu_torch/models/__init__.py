@@ -1,7 +1,8 @@
 """The deep segmentation path: U-Net forward (models/unet.py) on the fused
 conv and GroupNorm-moments kernels, flow tracking and flow-error QC
 (models/flows.py) on the diffusion kernel, the `SegmentationModel`
-wrapper, and synthetic cell images (models/synthetic.py)."""
+wrapper, synthetic cell images (models/synthetic.py), and the trainer
+(models/train.py, not imported here)."""
 
 from .segmentation import SegmentationModel
 from .synthetic import synthesize_cells

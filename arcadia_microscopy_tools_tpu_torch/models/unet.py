@@ -32,6 +32,12 @@ the same blocks through the kernels' plain PyTorch versions on any device,
 as the JAX package runs its float32 forward in XLA, outside its bfloat16
 Pallas conv.
 
+`training_forward` is the differentiable forward the trainer
+(models/train.py) runs: the JAX package's `_apply` with its default
+`_conv_block` and `_group_norm`, as plain PyTorch ops under autograd
+(`F.conv2d`, reductions, elementwise ops; the JAX training forward is XLA,
+not a Pallas kernel). It reads the same parameters as `forward`.
+
 Parameters keep the names of `init_unet`. Layouts: 3x3 convs (3, 3, Co, C),
 the layout the conv kernel stages; 1x1 convs and dense layers (C, Co).
 """
@@ -41,6 +47,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .conv_cuda import conv2d_f32, conv3x3_fused, conv3x3_fused_plain, gn_affine_params
@@ -105,6 +112,40 @@ def _max_pool2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     h2, w2 = h // 2, w // 2
     return x[:, : 2 * h2, : 2 * w2].reshape(b, h2, 2, w2, 2, c).amax((2, 4))
+
+
+def _max_pool2_first(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool of NHWC whose gradient goes to the first maximum of each
+    window in row-major order, as the gradient of XLA's `reduce_window` max
+    does (`amax` would split it between equal values)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """SAME 3x3 conv of NHWC `x` with a (3, 3, Co, C) weight, inputs and
+    output in `dtype` (the JAX package's `_conv2d`)."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), w.to(dtype).permute(2, 3, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _group_norm_train(x: torch.Tensor, scale, bias, groups: int) -> torch.Tensor:
+    """The JAX package's `_group_norm`: float32 statistics, two-pass centred
+    variance for float32 input and one-pass E[x^2] - mean^2 otherwise, eps
+    1e-5, output in x's dtype."""
+    b, h, w, c = x.shape
+    g = min(groups, c)
+    cg = c // g
+    n = h * w * cg
+    mean = x.sum((1, 2), dtype=torch.float32).reshape(b, g, cg).sum(2) / n
+    if x.dtype == torch.float32:
+        centred = x - mean.repeat_interleave(cg, 1)[:, None, None, :]
+        var = centred.square().sum((1, 2)).reshape(b, g, cg).sum(2) / n
+    else:
+        s2 = x.float().square().sum((1, 2))
+        var = s2.reshape(b, g, cg).sum(2) / n - mean * mean
+    mean_c = mean.repeat_interleave(cg, 1)[:, None, None, :]
+    inv_c = torch.rsqrt(var.clamp_min(0.0) + 1e-5).repeat_interleave(cg, 1)[:, None, None, :]
+    return ((x.float() - mean_c) * (inv_c * scale) + bias).to(x.dtype)
 
 
 class UNet(nn.Module):
@@ -185,6 +226,40 @@ class UNet(nn.Module):
         del f
         out += skip.to(dt)
         return out.relu_()
+
+    def _block_train(self, blk: _ConvBlock, x: torch.Tensor) -> torch.Tensor:
+        """Residual double conv of the JAX package's `_conv_block`."""
+        dt, groups = self.config.compute_dtype, self.config.groups
+        h = _group_norm_train(_conv_nhwc(x, blk.conv1, dt), blk.gn1_scale, blk.gn1_bias, groups)
+        h = _conv_nhwc(torch.relu(h), blk.conv2, dt)
+        h = _group_norm_train(h, blk.gn2_scale, blk.gn2_bias, groups)
+        skip = x if blk.proj is None else x.to(dt) @ blk.proj.to(dt)
+        return torch.relu(h + skip.to(h.dtype))
+
+    def training_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward of training: (B, H, W, in_channels)
+        float input -> (B, H, W, 3) float32, as the JAX package's `_apply`
+        computes it, activations in `config.compute_dtype`."""
+        dt = self.config.compute_dtype
+        skips = []
+        h = x
+        for i, blk in enumerate(self.down):
+            h = self._block_train(blk, h)
+            skips.append(h)
+            if i < len(self.down) - 1:
+                h = _max_pool2_first(h)
+
+        style = h.float().mean((1, 2))
+        style = style / (torch.linalg.vector_norm(style, dim=-1, keepdim=True) + 1e-6)
+        style = torch.relu(style @ self.style_dense)
+
+        n_levels = len(self.down)
+        for i, blk in enumerate(self.up):
+            h = torch.cat([_upsample2(h), skips[n_levels - 2 - i].to(h.dtype)], -1)
+            h = self._block_train(blk, h)
+            h = h + (style @ self.style_proj[i]).to(h.dtype)[:, None, None, :]
+        out = h.to(dt) @ self.head.to(dt) + self.head_bias
+        return out.float()
 
     @torch.no_grad()  # inference only: the kernels have no backward
     def forward(self, x: torch.Tensor) -> torch.Tensor:

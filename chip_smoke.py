@@ -1,7 +1,7 @@
 """On-card smoke run of the PyTorch port: the classical and U-Net plate
-paths (staged, and from ND2 files), the deep segmentation path, the
-preprocessing `Pipeline`, and the per-cell analysis and overlays of a
-well.
+paths (staged, and from ND2 and Leica LIF files), the deep segmentation
+path, the preprocessing `Pipeline` (also on a LIF timelapse), the per-cell
+analysis and overlays of a well, and the U-Net trainer.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -73,7 +73,30 @@ Phases, each printing its lines:
    columns within 1e-5); the fluorescence example's two overlays on the
    well against the CPU within 1e-6, and their out-of-range warnings on
    the card;
-10. timing - plate wells/s and per-stage ms; U-Net plate wells/s split into
+10. LIF plate - the 8 wells written as the 8 images of one LIF container
+   (tests/lif_builder.py); `list_image_names` and well 0's pixels and
+   inferred channels; `PlateRunner.run` for both methods with an image
+   source that calls the port's `load_lif_image`, with their kernel launch
+   counts, each table held against phases 4 and 7's from host arrays by
+   phase 4's rules (cell counts and integer columns equal, orientation
+   modulo pi where it is defined, other floats within 1e-5 relative;
+   whether bit for bit is printed); decode-inclusive wells/s and decode ms
+   per well beside phase 8's ND2 figures;
+11. LIF timelapse - the timelapse stack as one (T, Y, X) LIF image through
+   `MicroscopyImage.from_lif_path(...).device_intensities()` and phase 6's
+   local-threshold `Pipeline`: sizes, inferred channel, 8 rank kernel
+   launches, labels equal to phase 6's;
+12. training - one `train_step` from the trained weights (`UNetConfig()`,
+   bf16, batch 8 of 128^2) on the card and on the CPU: loss and its parts
+   within 1e-2 relative, targets' fg equal and flows within 0.02, every
+   gradient leaf at cosine similarity >= 0.99; then
+   `train(steps=10, batch=8, size=128)` on the card: finite losses, one
+   launch of kernel 6 per step and none of kernels 4-5, ms per step; then
+   as many more steps timed with a synchronize after each phase, split
+   into make_batch (host), targets and forward + backward + Adam; the
+   written `.npz` reloads equal and `SegmentationModel` segments a 512^2
+   image with it on the card;
+13. timing - plate wells/s and per-stage ms; U-Net plate wells/s split into
    the stretch, the forward, the compact mask tail (of which the QC
    diffusion) and the measurement, beside the dense `compute_masks` on the
    same outputs; segmentation images/s split into host preparation,
@@ -83,8 +106,9 @@ Phases, each printing its lines:
    version's time and, for the conv, cuDNN's bf16 `F.conv2d` and, for the
    rank selection, `torch.kthvalue` over the unfolded windows, on the same
    shapes; the per-cell analysis of one well in ms per stage (label, device
-   measurement, intensity stack, host columns, all columns, overlays);
-11. the `kernels` JSON line, then the card's name and power limit, then
+   measurement, intensity stack, host columns, all columns, overlays); the
+   LIF and training figures of phases 10-12 again;
+14. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -94,7 +118,8 @@ control flow); it prints no device result and exits non-zero.
 `--compare-with FILE` reads the output of an earlier run (the parent
 commit's `chip_smoke.py`, run in the same chip call) and prints each
 kernel's earlier time beside this run's, and each conv call's.
-`--profile DIR` adds a `torch.profiler` trace of one default per-cell table
+`--profile DIR` adds a `torch.profiler` trace of one whole training step
+and one update alone, one default per-cell table
 of well 0, one forward and one mask reconstruction of the segmentation
 batch, one batch of each preprocessing configuration, one U-Net plate
 batch, its compact mask tail and the dense `compute_masks` on the same
@@ -224,12 +249,13 @@ def port_modules() -> SimpleNamespace:
     import arcadia_microscopy_tools_tpu_torch as pkg
     from arcadia_microscopy_tools_tpu_torch import _build, _native, masks, operations, testing
     from arcadia_microscopy_tools_tpu_torch.core import microplate, microscopy
-    from arcadia_microscopy_tools_tpu_torch.io import nd2, nikon
+    from arcadia_microscopy_tools_tpu_torch.io import leica, lif, nd2, nikon
     from arcadia_microscopy_tools_tpu_torch.models import (
         conv_cuda,
         flows,
         flows_cuda,
         gn_cuda,
+        train,
         unet,
         weights,
     )
@@ -241,8 +267,8 @@ def port_modules() -> SimpleNamespace:
     from arcadia_microscopy_tools_tpu_torch.viz import blending
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
-        _build, _native, masks, operations, testing, microplate, microscopy, nd2, nikon,
-        conv_cuda, flows, flows_cuda, gn_cuda, unet, weights,
+        _build, _native, masks, operations, testing, microplate, microscopy, leica, lif, nd2, nikon,
+        conv_cuda, flows, flows_cuda, gn_cuda, train, unet, weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
         threshold, plate, profiling, blending,
     )}, pkg=pkg)
@@ -456,6 +482,17 @@ def greedy_instance_iou(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
     return (float(np.mean(matched)) if matched else 0.0, len(matched) / max(len(ids_a), len(ids_b)))
 
 
+def orientation_differs(a: np.ndarray, b: np.ndarray, eccentricity: np.ndarray) -> bool:
+    """Whether two orientation columns differ beyond 1e-4 as axis angles
+    (+-pi/2 are one axis) on the cells where the angle is defined: near-round
+    cells and exact moment ties (+-pi/4) depend on the last bit of the sums."""
+    d = np.abs(a - b)
+    d = np.minimum(d, np.pi - d)
+    ties = (np.abs(np.abs(a) - np.pi / 4) < 1e-4) & (np.abs(np.abs(b) - np.pi / 4) < 1e-4)
+    held = (eccentricity > 0.3) & ~ties
+    return bool((d[held] > 1e-4).any())
+
+
 def compare_measurements(props_d, int_d, props_c, int_c) -> float:
     """Per-cell columns measured on the card against the CPU's: integer
     columns equal, orientation modulo pi where the cell is elongated and
@@ -469,14 +506,7 @@ def compare_measurements(props_d, int_d, props_c, int_c) -> float:
             if not torch.equal(a, b):
                 raise RuntimeError(f"integer column {name} differs from the CPU")
         elif name == "orientation":
-            # an axis angle: +-pi/2 are one axis; near-round cells and exact
-            # moment ties (+-pi/4) depend on the last bit of the sums
-            d = (a - b).abs()
-            d = torch.minimum(d, torch.pi - d)
-            quarter = (a.abs() - torch.pi / 4).abs() < 1e-4
-            ties = quarter & ((b.abs() - torch.pi / 4).abs() < 1e-4)
-            held = (ecc > 0.3) & ~ties
-            if bool((d[held] > 1e-4).any()):
+            if orientation_differs(a.numpy(), b.numpy(), ecc.numpy()):
                 raise RuntimeError("orientation differs from the CPU")
         else:
             worst = max(worst, float(((a - b).abs() / (1e-4 + b.abs())).max()))
@@ -489,6 +519,37 @@ def compare_measurements(props_d, int_d, props_c, int_c) -> float:
             rel = (a[fin] - b[fin]).abs() / (1e-4 + b[fin].abs())
             worst = max(worst, float(rel.max()))
     return worst
+
+
+def compare_plate_tables(got, want, well_ids) -> tuple[bool, float, str]:
+    """(bit for bit, worst float relative difference, its column) of two
+    plate runs' tables, by `compare_measurements`' rules: raises unless every
+    well has the same columns and cell count, equal integer columns and
+    orientations that agree (`orientation_differs`); the other float
+    columns' relative difference with a 1e-4 floor on the scale."""
+    exact, worst, where = True, 0.0, ""
+    for w in well_ids:
+        a, b = got.tables[w], want.tables[w]
+        if a is None or b is None or list(a.columns) != list(b.columns) or len(a) != len(b):
+            raise RuntimeError(f"well {w}: tables of different shape or a failed well")
+        for col in a.columns:
+            x, y = a[col].to_numpy(), b[col].to_numpy()
+            if not np.issubdtype(y.dtype, np.floating):
+                if not np.array_equal(x, y):
+                    raise RuntimeError(f"well {w}: integer column {col} differs")
+                continue
+            exact = exact and np.array_equal(x, y, equal_nan=True)
+            if col == "orientation":
+                if orientation_differs(x, y, b["eccentricity"].to_numpy()):
+                    raise RuntimeError(f"well {w}: orientation differs")
+                continue
+            fin = np.isfinite(y)
+            if not np.array_equal(np.isfinite(x), fin):
+                raise RuntimeError(f"well {w}: finiteness of {col} differs")
+            rel = np.abs(x[fin] - y[fin]) / (1e-4 + np.abs(y[fin]))
+            if len(rel) and float(rel.max()) > worst:
+                worst, where = float(rel.max()), f"{w} {col}"
+    return exact, worst, where
 
 
 # per-cell columns that the host computes from the label image (measure.py)
@@ -1113,7 +1174,7 @@ def main(argv: list[str] | None = None) -> int:
             route = {k: m.nd2.planarize_counts[k] - before[k] for k in before}
             decode_ms = res.timings["decode_s"] / res.timings["decode_wells"] * 1e3
             decode_cpu_ms = res.timings["decode_cpu_s"] / res.timings["decode_wells"] * 1e3
-            decode_rows[name] = (n_wells / wall, decode_ms, n_wells / host_wall)
+            decode_rows[name] = (n_wells / wall, decode_ms, decode_cpu_ms, n_wells / host_wall)
             say(f"[decode] {name}: PlateRunner.run from ND2 files, {n_wells} wells in {wall:.3f} s, "
                 f"{n_wells / wall:.3f} wells/s including decode (second run; one batch of "
                 f"{n_wells}, decoded by one prefetch worker); decode {decode_ms:.2f} ms per well "
@@ -1213,7 +1274,203 @@ def main(argv: list[str] | None = None) -> int:
         raise RuntimeError("a tensor background's overlay left its device or [0, 1]")
     del cpu_cells, ov_d, ov_c, on_dev
 
-    # -- 10. timing ------------------------------------------------------------------
+    # -- 10. LIF plate ---------------------------------------------------------------------
+    # the 8 wells as the 8 images of one Leica LIF container (tests/lif_builder.py), read
+    # through the port's load_lif_image by both plate methods
+    from lif_builder import LifBuilder
+
+    lif_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_lif_"))
+    lif_time = {}
+    try:
+        lif_plate = lif_dir / "plate.lif"
+        t0 = time.perf_counter()
+        builder = LifBuilder()
+        pitch = [(1, size, size * 0.325e-6, "m"), (2, size, size * 0.325e-6, "m")]
+        detectors = [{"DetectorName": f"HyD S {k % 2 + 1}", "BeamRoute": "10;0"} for k in range(n_ch)]
+        for k, w in enumerate(layout.well_ids):
+            builder.add_image(w, wells[k], dims=pitch, channel_properties=detectors)
+        builder.write(lif_plate)
+        del builder
+        say(f"[lif] wrote {n_wells} wells of {n_ch}x{size}x{size} uint16 as the images of one LIF "
+            f"container ({lif_plate.stat().st_size / 2**20:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+        m.lif.clear_container_cache()
+        t0 = time.perf_counter()
+        names = m.leica.list_image_names(lif_plate)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        pixels0, meta0 = m.leica.load_lif_image(lif_plate, layout.well_ids[0])
+        inferred = [(c.channel.name, c.channel.excitation_nm) for c in meta0.channel_metadata_list]
+        say(f"[lif] list_image_names {names} ({open_ms:.1f} ms: the container's first read and "
+            f"parse, cached after); well 0 sizes {meta0.sizes}, channels inferred {inferred}")
+        if names != list(layout.well_ids) or not np.array_equal(pixels0, wells[0]):
+            raise RuntimeError("the LIF container does not list the wells or decode to the pixels written")
+        if meta0.sizes != {"C": n_ch, "Y": size, "X": size} or inferred != [("WLL", 488.0)] * n_ch:
+            raise RuntimeError(f"LIF well 0: sizes {meta0.sizes}, channels {inferred}")
+        del pixels0
+
+        def from_lif(well_id):
+            return m.leica.load_lif_image(lif_plate, well_id)[0]
+
+        lif_kernels = {"classical": ("local_cc", "local_resweep"),
+                       "unet": ("conv3x3_fused", "lane_moments", "diffuse")}
+        for name, runner_x, want in (("classical", runner, results), ("unet", unet_runner, unet_results)):
+            runner_x.run(layout, from_lif)  # warm
+            reset_all_counts(m)
+            t0 = time.perf_counter()
+            res = runner_x.run(layout, from_lif)
+            sync()
+            wall = time.perf_counter() - t0
+            lif_launches = all_counts(m)
+            decode_ms = res.timings["decode_s"] / res.timings["decode_wells"] * 1e3
+            decode_cpu_ms = res.timings["decode_cpu_s"] / res.timings["decode_wells"] * 1e3
+            exact, worst, where = compare_plate_tables(res, want, layout.well_ids)
+            lif_time[name] = [round(n_wells / wall, 3), round(decode_ms, 3), round(decode_cpu_ms, 3)]
+            nd2_row = [round(v, 3) for v in decode_rows[name][:3]]
+            say(f"[lif] {name}: PlateRunner.run from the LIF container, {n_wells} wells in {wall:.3f} "
+                f"s, {n_wells / wall:.3f} wells/s including decode (second run, one prefetch worker); "
+                f"decode {decode_ms:.2f} ms per well wall, {decode_cpu_ms:.2f} ms thread CPU (ND2, "
+                f"phase 8: wells/s, decode ms wall, thread CPU {nd2_row}); launches {lif_launches}; "
+                f"tables against phase {4 if name == 'classical' else 7}'s from host arrays: bit for "
+                f"bit {exact}, cell counts and integer columns equal, orientation held modulo pi, "
+                f"worst float relative difference {worst:.2e} ({where or 'none'}; limit 1e-5)")
+            if worst > 1e-5:
+                raise RuntimeError(f"{name} tables from the LIF container differ beyond 1e-5 relative")
+            if not rehearsal and min(lif_launches[k] for k in lif_kernels[name]) <= 0:
+                raise RuntimeError(f"the LIF {name} plate did not launch its kernels: {lif_launches}")
+
+        # -- 11. LIF timelapse ----------------------------------------------------------------
+        # the local-threshold cell's 8 frames as one (T, Y, X) image, through
+        # MicroscopyImage.from_lif_path, device_intensities() and phase 6's pipeline
+        lapse_lif = lif_dir / "timelapse.lif"
+        builder = LifBuilder()
+        builder.add_image("timelapse", lapse[None], dims=[
+            (1, pre_size, pre_size * 0.325e-6, "m"), (2, pre_size, pre_size * 0.325e-6, "m"),
+            (4, n_wells, n_wells * 0.5, "s")],
+            channel_properties=[{"DetectorName": "HyD S 1", "BeamRoute": "10;0"}])
+        builder.write(lapse_lif)
+        del builder
+        t0 = time.perf_counter()
+        stack_image = m.microscopy.MicroscopyImage.from_lif_path(lapse_lif, "timelapse")
+        open_ms = (time.perf_counter() - t0) * 1e3
+        ch0 = stack_image.channels[0]
+        reset_all_counts(m)
+        t0 = time.perf_counter()
+        on_card = stack_image.device_intensities("cpu" if rehearsal else None)
+        sync()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lab_lif = pipes["local threshold"](on_card)
+        sync()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        lapse_launches = all_counts(m)
+        lab_lif = lab_lif.cpu().numpy()
+        lif_time["timelapse ms: from_lif_path, upload, pipeline"] = [
+            round(open_ms, 3), round(upload_ms, 3), round(pipe_ms, 3)]
+        say(f"[lif] timelapse: from_lif_path {open_ms:.2f} ms (container read, parse and decode of "
+            f"{n_wells}x{pre_size}^2 uint16), sizes {stack_image.sizes}, channel {ch0.name} "
+            f"excitation {ch0.excitation_nm} nm, T step "
+            f"{stack_image.metadata.instrument.channel_metadata_list[0].resolution.t_step_ms} ms; "
+            f"device_intensities() {upload_ms:.2f} ms on {on_card.device}; the local-threshold "
+            f"Pipeline on it {pipe_ms:.2f} ms (first call on this tensor); launches {lapse_launches}; "
+            f"labels equal to phase 6's from host memory: {np.array_equal(lab_lif, lab)}")
+        if stack_image.sizes != {"T": n_wells, "Y": pre_size, "X": pre_size} or (
+                ch0.name, ch0.excitation_nm) != ("WLL", 488.0):
+            raise RuntimeError(f"LIF timelapse: sizes {stack_image.sizes}, channel {ch0}")
+        if not np.array_equal(stack_image.intensities, lapse) or not np.array_equal(lab_lif, lab):
+            raise RuntimeError("the LIF timelapse's pixels or labels differ from the host stack's")
+        if not rehearsal and (lapse_launches["rank_select"] != n_wells or min(
+                lapse_launches["local_cc"], lapse_launches["local_resweep"]) <= 0):
+            raise RuntimeError(f"the LIF timelapse did not launch the rank kernel once per frame "
+                               f"and the CC kernels: {lapse_launches}")
+        del stack_image, on_card
+
+        # -- 12. training ---------------------------------------------------------------------
+        # one step from the trained weights on the card and on the CPU; then
+        # train() at the JAX defaults (UNetConfig(), bf16, batch 8, 128^2) on the card
+        t_batch, t_size, t_steps = (8, 128, 10) if not rehearsal else (2, 64, 2)
+        images_t, labels_t = m.train.make_batch(np.random.default_rng(7), t_batch, t_size)
+        stepped = []
+        for d in (dev, torch.device("cpu")):
+            net_t = m.unet.UNet(m.unet.UNetConfig(), generator=torch.Generator())
+            net_t.load_state_dict(m.weights.load_weights())
+            net_t = net_t.to(d)
+            flow_t, fg_t = m.train._flow_targets(torch.from_numpy(labels_t).to(d))
+            got = m.train.train_step(net_t, m.train.make_optimizer(net_t), 3e-4,
+                                     torch.from_numpy(images_t).to(d), flow_t, fg_t.float())
+            stepped.append(([float(v) for v in got], flow_t.cpu(), fg_t.cpu(),
+                            {k: p.grad.float().cpu() for k, p in net_t.named_parameters()}))
+            del net_t
+        (l_d, fl_d, fg_d, g_d), (l_c, fl_c, fg_c, g_c) = stepped
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
+        flow_err = float((fl_d - fl_c).abs().max())
+        min_cos = min(float(torch.nn.functional.cosine_similarity(g_d[k].flatten(), g_c[k].flatten(),
+                                                                  dim=0)) for k in g_c)
+        say(f"[train] one step from the trained weights, batch {t_batch} of {t_size}^2: loss, flow "
+            f"MSE, BCE on {dev} {[round(v, 6) for v in l_d]}, on the CPU "
+            f"{[round(v, 6) for v in l_c]}: worst relative difference {loss_rel:.2e} (limit 1e-2); "
+            f"targets fg equal {torch.equal(fg_d, fg_c)}, flows max abs {flow_err:.2e} (limit 0.02); "
+            f"least gradient cosine similarity over the leaves {min_cos:.5f} (limit 0.99)")
+        if loss_rel > 1e-2 or not torch.equal(fg_d, fg_c) or flow_err > 0.02 or min_cos < 0.99:
+            raise RuntimeError("the training step on the card differs from the CPU beyond tolerance")
+        del stepped, g_d, g_c
+
+        train_npz = lif_dir / "trained.npz"
+        reset_all_counts(m)
+        t0 = time.perf_counter()
+        trained = m.train.train(steps=t_steps, batch=t_batch, size=t_size, seed=0, out=train_npz,
+                                device=dev)
+        sync()
+        train_s = time.perf_counter() - t0
+        train_launches = all_counts(m)
+        losses = [r["loss"] for r in trained.history]
+        if not all(math.isfinite(v) for r in trained.history for v in r.values()):
+            raise RuntimeError(f"a training loss is not finite: {trained.history}")
+        say(f"[train] train(steps={t_steps}, batch={t_batch}, size={t_size}) on {dev}: {train_s:.2f} "
+            f"s, {train_s * 1e3 / t_steps:.3f} ms per step; losses {[round(v, 4) for v in losses]}; "
+            f"launches {train_launches}")
+        if not rehearsal and (train_launches["diffuse"] != t_steps or train_launches["conv3x3_fused"]
+                              or train_launches["lane_moments"]):
+            raise RuntimeError(f"the trainer's kernel launches are not one diffusion per step and no "
+                               f"bf16 forward kernel: {train_launches}")
+        reloaded = m.weights.load_weights(train_npz)
+        state = trained.network.state_dict()
+        if reloaded.keys() != state.keys() or not all(
+                torch.equal(reloaded[k], state[k].cpu()) for k in state):
+            raise RuntimeError("the trained weights do not reload equal")
+        img_t = m.testing.synthetic_wells(1, 1, check_size, check_size, 20, seed=3)[0, 0].astype(np.float64)
+        seg_t = m.pkg.SegmentationModel(checkpoint_path=train_npz, device=dev)
+        lab_t = seg_t.segment(img_t)
+        say(f"[train] the written .npz reloads equal ({len(state)} leaves); SegmentationModel "
+            f"segments a {check_size}^2 image with it on {seg_t.device}: {int(lab_t.max())} cells")
+        if lab_t.shape != img_t.shape:
+            raise RuntimeError(f"segmentation with the trained weights returned {lab_t.shape}")
+        # the step's split, timed here with a synchronize after each phase
+        # (train() itself runs asynchronously): t_steps more steps of the
+        # trained network after its weights were checked, mean of steps 1 on
+        split_opt, split_rng = m.train.make_optimizer(trained.network), np.random.default_rng(1)
+        split = {"make_batch (host)": [], "targets": [], "forward + backward + Adam": []}
+        for _ in range(t_steps):
+            ta = time.perf_counter()
+            im, lb = m.train.make_batch(split_rng, t_batch, t_size)
+            tb = time.perf_counter()
+            ft, fg = m.train._flow_targets(torch.from_numpy(lb).to(dev))
+            sync()
+            tc = time.perf_counter()
+            m.train.train_step(trained.network, split_opt, 3e-4, torch.from_numpy(im).to(dev), ft,
+                               fg.float())
+            sync()
+            td = time.perf_counter()
+            for k, t in zip(split, (tb - ta, tc - tb, td - tc)):
+                split[k].append(t * 1e3)
+        train_time = {"train() step": round(train_s * 1e3 / t_steps, 3)}
+        train_time.update({k: round(sum(v[1:] or v) / len(v[1:] or v), 3) for k, v in split.items()})
+        say(f"[train] split of {t_steps} more steps, ms per step (mean of steps 1-{t_steps - 1}, "
+            f"synchronized after each phase): {json.dumps(train_time)}")
+        del trained, seg_t
+    finally:
+        shutil.rmtree(lif_dir, ignore_errors=True)
+        m.lif.clear_container_cache()
+
+    # -- 13. timing ------------------------------------------------------------------
     reps = 5 if not rehearsal else 1
     program_ms = time_host(lambda: program(staged), reps, sync)
     say(f"[time] plate device program: {program_ms:.2f} ms per batch of {n_wells} wells, "
@@ -1283,8 +1540,9 @@ def main(argv: list[str] | None = None) -> int:
         f"the route the compact tail replaces; QC foreground fraction "
         f"{float((qc_lbl_u > 0).float().mean()):.4f})")
     if decode_rows:
-        say(f"[time] decode-inclusive wells/s, decode ms per well, wells/s from host arrays: "
-            f"{json.dumps({k: [round(v, 3) for v in r] for k, r in decode_rows.items()})}")
+        say(f"[time] decode-inclusive wells/s, decode ms per well (wall, thread CPU), wells/s from "
+            f"host arrays: {json.dumps({k: [round(v, 3) for v in r] for k, r in decode_rows.items()})}")
+    say(f"[time] LIF: {json.dumps(lif_time)}; training ms per step: {json.dumps(train_time)}")
 
     # preprocessing: each configuration from host memory (NumPy in, NumPy
     # out, as users call it) and on the staged stack; ms per operation
@@ -1334,8 +1592,30 @@ def main(argv: list[str] | None = None) -> int:
         f"and create_overlay from host arrays); card: {smi}")
 
     if args.profile and not rehearsal:
+        # one whole training step (host batch, targets, update) and one update
+        # alone on a fixed batch, at phase 12's size, from the trained weights
+        net_p = m.unet.UNet(m.unet.UNetConfig(), generator=torch.Generator())
+        net_p.load_state_dict(m.weights.load_weights())
+        net_p, rng_p = net_p.to(dev), np.random.default_rng(11)
+        opt_p = m.train.make_optimizer(net_p)
+        imgs_p, lbls_p = m.train.make_batch(rng_p, t_batch, t_size)
+        flows_p, fg_p = m.train._flow_targets(torch.from_numpy(lbls_p).to(dev))
+        imgs_p, fg_p = torch.from_numpy(imgs_p).to(dev), fg_p.float()
+
+        def train_step_whole():
+            with torch.inference_mode(False):
+                im, lb = m.train.make_batch(rng_p, t_batch, t_size)
+                ft, fg = m.train._flow_targets(torch.from_numpy(lb).to(dev))
+                m.train.train_step(net_p, opt_p, 3e-4, torch.from_numpy(im).to(dev), ft, fg.float())
+
+        def train_update():
+            with torch.inference_mode(False):
+                m.train.train_step(net_p, opt_p, 3e-4, imgs_p, flows_p, fg_p)
+
         with torch.inference_mode():
             profile_windows({
+                "train step": train_step_whole,
+                "train update": train_update,
                 "per-cell cell_properties": lambda: m.masks.SegmentationMask(
                     cell_mask, cell_planes, device=dev).cell_properties,
                 "forward": lambda: model.network(x_seg),
@@ -1529,7 +1809,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 11. result -----------------------------------------------------------------
+    # -- 14. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -292,3 +292,35 @@ def test_float32_forward_on_the_card_runs_the_plain_blocks(cuda_device):
     assert conv_cuda.launch_counts["conv3x3_fused"] == 0
     cpu = nets[1](x)
     assert (card - cpu).abs().max() <= 1e-3 * cpu.abs().max()
+
+
+@pytest.mark.gpu
+def test_training_step_on_the_card_matches_the_cpu(cuda_device):
+    """One trainer step from the trained weights (full width, bf16, batch 2
+    of 64^2): the flow targets launch the diffusion kernel once and match
+    the CPU's (fg equal, flows within 0.02), the loss and its parts within
+    1e-2 relative, and the training forward launches no bf16 forward
+    kernel."""
+    from arcadia_microscopy_tools_tpu_torch.models import train
+    from arcadia_microscopy_tools_tpu_torch.models.unet import UNet, UNetConfig
+    from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
+
+    images, labels = train.make_batch(np.random.default_rng(2), 2, 64)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        net = UNet(UNetConfig(), generator=torch.Generator())
+        net.load_state_dict(load_weights())
+        net = net.to(device)
+        flows_cuda.reset_launch_counts()
+        conv_cuda.reset_launch_counts()
+        gn_cuda.reset_launch_counts()
+        flow_t, fg = train._flow_targets(torch.from_numpy(labels).to(device))
+        losses = train.train_step(net, train.make_optimizer(net), 3e-4,
+                                  torch.from_numpy(images).to(device), flow_t, fg.float())
+        launched = (flows_cuda.launch_counts["diffuse"], conv_cuda.launch_counts["conv3x3_fused"],
+                    gn_cuda.launch_counts["lane_moments"])
+        results.append(([float(v) for v in losses], flow_t.cpu(), fg.cpu(), launched))
+    (card, flow_d, fg_d, launched), (cpu, flow_c, fg_c, _) = results
+    assert launched == (1, 0, 0)
+    assert torch.equal(fg_d, fg_c) and float((flow_d - flow_c).abs().max()) <= 0.02
+    np.testing.assert_allclose(card, cpu, rtol=1e-2)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX, orbax nor the JAX
 package, and never mentions them in an import statement; nor does
-`chip_smoke.py` with every port module it drives."""
+`chip_smoke.py` with every port module it drives. The subprocess also reads
+a LIF container and takes one training step with JAX blocked."""
 
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ import arcadia_microscopy_tools_tpu_torch.io
 import arcadia_microscopy_tools_tpu_torch.io.nd2
 import arcadia_microscopy_tools_tpu_torch.io.nikon
 import arcadia_microscopy_tools_tpu_torch.io.tiles
+import arcadia_microscopy_tools_tpu_torch.io.lif
+import arcadia_microscopy_tools_tpu_torch.io.leica
+import arcadia_microscopy_tools_tpu_torch.leica
+import arcadia_microscopy_tools_tpu_torch.models.train
 import arcadia_microscopy_tools_tpu_torch.channels
 import arcadia_microscopy_tools_tpu_torch.metadata_structures
 import arcadia_microscopy_tools_tpu_torch.microplate
@@ -63,6 +68,15 @@ arcadia_microscopy_tools_tpu_torch.models.synthetic.load_fixture_stats()
 from arcadia_microscopy_tools_tpu_torch import MicroscopyImage
 image = MicroscopyImage.from_nd2_path("tests/data/example-multichannel.nd2")
 image.device_intensities("cpu")
+import contextlib, io, tempfile
+sys.path.insert(0, "tests")
+from lif_builder import simple_confocal_lif
+with tempfile.TemporaryDirectory() as tmp:
+    simple_confocal_lif(tmp + "/a.lif", name="S1", shape=(32, 32))
+    MicroscopyImage.from_lif_path(tmp + "/a.lif", "S1").device_intensities("cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        arcadia_microscopy_tools_tpu_torch.models.train.train(
+            steps=1, batch=1, size=64, out=tmp + "/w.npz", device="cpu")
 import chip_smoke
 chip_smoke.port_modules()
 arcadia_microscopy_tools_tpu_torch.models.weights.load_weights()

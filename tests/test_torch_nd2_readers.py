@@ -1,5 +1,5 @@
 """PyTorch port: its ND2 reader against the JAX package's on the five real
-fixtures, and the device side of its `MicroscopyImage`.
+fixtures, and the device side of its `MicroscopyImage` (from ND2 and LIF).
 
 Both readers must give the same pixels (dtype and shape too) and the same
 metadata tree, field by field, through `load_nd2` and
@@ -108,6 +108,18 @@ class TestDeviceIntensities:
             t_image = MicroscopyImage(torch.from_numpy(image.intensities), image.metadata)
         assert "dtype=torch.uint16" in repr(t_image)
 
-    def test_lif_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="LIF"):
-            MicroscopyImage.from_lif_path(DATA / "missing.lif", "image")
+    def test_from_lif_path_loads_a_built_container(self, tmp_path):
+        """The name is kept from when `from_lif_path` raised; it now loads a
+        container that tests/lif_builder.py wrote, and its cached CPU copy
+        slices like an ND2 image's."""
+        from lif_builder import simple_confocal_lif
+
+        path = tmp_path / "one.lif"
+        data = simple_confocal_lif(path, name="S1", shape=(40, 56))
+        image = MicroscopyImage.from_lif_path(path, "S1", sample_metadata={"well": "A01"})
+        assert image.sizes == {"Y": 40, "X": 56} and image.metadata.sample == {"well": "A01"}
+        np.testing.assert_array_equal(image.intensities, data[0])
+        t = image.device_intensities("cpu")
+        assert t.dtype == torch.uint16 and image.device_intensities("cpu") is t
+        wll = image.get_channel_intensities("WLL", device="cpu")
+        np.testing.assert_array_equal(wll.numpy(), data[0])
