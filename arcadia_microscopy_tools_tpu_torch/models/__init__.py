@@ -2,9 +2,27 @@
 conv and GroupNorm-moments kernels, flow tracking and flow-error QC
 (models/flows.py) on the diffusion kernel, the `SegmentationModel`
 wrapper, synthetic cell images (models/synthetic.py), and the trainer
-(models/train.py, not imported here)."""
+(models/train.py, not imported here).
 
-from .segmentation import SegmentationModel
+The JAX package's functional U-Net names map to the `UNet` module:
+`init_unet(key, config)` is `UNet(config, generator=...)` (its parameters
+keep `init_unet`'s names), `apply_unet(params, x)` is `UNet.forward(x)`
+(NHWC in and out), and `count_params(params)` is
+`sum(p.numel() for p in net.parameters())`."""
+
+from .flows import compute_masks, flow_error, follow_flows, masks_to_flows
+from .segmentation import SegmentationModel, find_best_available_device
 from .synthetic import synthesize_cells
+from .unet import UNet, UNetConfig
 
-__all__ = ["SegmentationModel", "synthesize_cells"]
+__all__ = [
+    "SegmentationModel",
+    "UNet",
+    "UNetConfig",
+    "compute_masks",
+    "find_best_available_device",
+    "flow_error",
+    "follow_flows",
+    "masks_to_flows",
+    "synthesize_cells",
+]

@@ -22,8 +22,8 @@ Two routes give the same labels:
 Every function takes a leading batch axis B and computes each image as the
 JAX function computes it alone. Flat pixel indices are int64 (the JAX
 package's float32 indices are exact only up to 2^24 pixels). Per-label
-reductions are float64 `index_add_` or exact integer sums, and lookups
-plain indexing (ops/segment_reduce.py). The flow-error QC's diffusion runs
+reductions are exact integer sums or float64 sums in a fixed order, and
+lookups plain indexing (ops/segment_reduce.py). The flow-error QC's diffusion runs
 the CUDA kernel of `flows_cuda.diffuse` on the card in both routes.
 """
 
@@ -201,7 +201,8 @@ def _centre_sources(lbl: torch.Tensor, max_cells: int) -> torch.Tensor:
     yy, xx = _grid(h, w, lbl.device)
     yf = yy.reshape(1, n).expand(b, n)
     xf = xx.reshape(1, n).expand(b, n)
-    sums = segment_sums(torch.stack([torch.ones_like(yf), yf, xf], 1), seg, nseg, fg).float()
+    grid = torch.stack([torch.ones_like(yf), yf, xf], 1).long()  # exact integer sums
+    sums = segment_sums(grid, seg, nseg, fg).float()
     area = sums[:, 0].clamp_min(1.0)
     cy, cx = sums[:, 1] / area, sums[:, 2] / area
     d2 = _sum_of_squares(yf - table_lookup(cy, seg), xf - table_lookup(cx, seg))

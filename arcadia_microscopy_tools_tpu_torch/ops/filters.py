@@ -17,7 +17,10 @@ import torch.nn.functional as F
 
 __all__ = [
     "to_float",
+    "centre_on_midrange",
     "gaussian_filter",
+    "gaussian_radius",
+    "gaussian_valid",
     "difference_of_gaussians",
     "box_filter",
     "window_mean_std",
@@ -83,7 +86,7 @@ def _pad_last2(
 
 def _gaussian_kernel_1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """Sampled, normalized 1-D Gaussian (matches scipy.ndimage.gaussian_filter1d)."""
-    radius = int(truncate * float(sigma) + 0.5)
+    radius = gaussian_radius(sigma, truncate)
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     kernel = np.exp(-0.5 * (x / float(sigma)) ** 2)
     kernel /= kernel.sum()
@@ -105,11 +108,26 @@ def gaussian_filter(
     x = x.to(torch.float32)
     if sigma <= 0:
         return x
-    kernel = torch.from_numpy(_gaussian_kernel_1d(sigma, truncate)).to(x.device)
+    radius = gaussian_radius(sigma, truncate)
+    return gaussian_valid(_pad_last2(x, radius, radius, mode, cval), sigma, truncate)
+
+
+def gaussian_radius(sigma: float, truncate: float = 4.0) -> int:
+    """Half-width of the sampled Gaussian kernel (scipy's radius)."""
+    return int(truncate * float(sigma) + 0.5)
+
+
+def gaussian_valid(padded: torch.Tensor, sigma: float, truncate: float = 4.0) -> torch.Tensor:
+    """The Gaussian over the last two axes of float32 `padded`, already
+    padded by `gaussian_radius` on each side, cropped to the pixels whose
+    window lies inside it: (..., H - 2r, W - 2r). A row slab padded with its
+    neighbours' rows gives the same bits as those rows of the whole image's
+    result (the spatially sharded plate program relies on it)."""
+    kernel = torch.from_numpy(_gaussian_kernel_1d(sigma, truncate)).to(padded.device)
     radius = (kernel.numel() - 1) // 2
-    lead = x.shape[:-2]
-    h, w = x.shape[-2:]
-    y = _pad_last2(x, radius, radius, mode, cval).reshape(-1, 1, h + 2 * radius, w + 2 * radius)
+    lead = padded.shape[:-2]
+    hp, wp = padded.shape[-2:]
+    y = padded.reshape(-1, 1, hp, wp)
     # cuDNN runs float32 convolutions in TF32 by default (about three
     # decimal digits); the scoped flag keeps both passes in full float32.
     cudnn = torch.backends.cudnn
@@ -121,7 +139,7 @@ def gaussian_filter(
     ):
         y = F.conv2d(y, kernel.view(1, 1, -1, 1))
         y = F.conv2d(y, kernel.view(1, 1, 1, -1))
-    return y.reshape(*lead, h, w)
+    return y.reshape(*lead, hp - 2 * radius, wp - 2 * radius)
 
 
 def difference_of_gaussians(
@@ -143,11 +161,16 @@ def difference_of_gaussians(
     img = to_float(x)
     if mode != "constant":
         flat = img.reshape(*img.shape[:-2], -1)
-        mid = (flat.amin(-1) + flat.amax(-1)) * 0.5
-        img = img - mid[..., None, None]
+        img = centre_on_midrange(img, flat.amin(-1), flat.amax(-1))
     low = gaussian_filter(img, low_sigma, mode=mode, truncate=truncate)
     high = gaussian_filter(img, high_sigma, mode=mode, truncate=truncate)
     return low - high
+
+
+def centre_on_midrange(img: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """`img` minus the midrange of each image, from its minimum and maximum
+    over the last two axes (the DoG's first step)."""
+    return img - ((lo + hi) * 0.5)[..., None, None]
 
 
 # -- windowed statistics -------------------------------------------------------------

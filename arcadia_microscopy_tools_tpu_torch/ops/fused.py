@@ -9,7 +9,10 @@ that each half can be held against the reference on its own:
 - `mask_from_q0` builds the integer histogram of q0, reads the two
   percentiles from its cumulative sum, pushes the histogram forward through
   the monotone rescale, thresholds it, and pulls the threshold back to one
-  comparison against q0.
+  comparison against q0. It is split at its histogram
+  (`q0_histograms`, then `cutoff_from_hist`) so that the row slabs of a
+  spatially sharded image can add their counts before the decision
+  (`parallel/plate.py`).
 
 All functions take a batch of images (B, H, W).
 """
@@ -34,6 +37,9 @@ from .threshold import (
 __all__ = [
     "fused_classical_mask",
     "quantize_dog",
+    "quantize",
+    "q0_histograms",
+    "cutoff_from_hist",
     "mask_from_q0",
     "HIST_THRESHOLD_METHODS",
 ]
@@ -97,30 +103,43 @@ def quantize_dog(
     flat = dog.reshape(dog.shape[0], -1)
     mn = flat.amin(-1)
     mx = flat.amax(-1)
+    return quantize(dog, mn, mx), mn, mx
+
+
+def quantize(dog: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) DoG values -> int32 levels in [0, 65535] over each image's
+    [mn, mx] (the image's range, which a row slab takes from all slabs)."""
     step = (mx - mn).clamp_min(1e-30) / 65535.0
     q0 = torch.floor((dog - mn[:, None, None]) / step[:, None, None])
-    return q0.clamp(0.0, 65535.0).to(torch.int32), mn, mx
+    return q0.clamp(0.0, 65535.0).to(torch.int32)
 
 
-def mask_from_q0(
-    q0: torch.Tensor,
+def q0_histograms(q0: torch.Tensor) -> torch.Tensor:
+    """(B, 65536) int64 counts of each image's levels."""
+    return torch.stack([histogram_int(q, _BINS)[0] for q in q0])
+
+
+def cutoff_from_hist(
+    counts: torch.Tensor,
+    n: int,
     mn: torch.Tensor,
     mx: torch.Tensor,
     percentile_range: tuple[float, float] = (0.5, 99.9),
     method: str = "otsu",
 ) -> torch.Tensor:
-    """Foreground mask (B, H, W) from quantized DoG images.
+    """The level c0 (B,) such that `q0 > c0` is the foreground, from the
+    (B, 65536) level counts of images of `n` pixels.
 
     The percentile rescale is a monotone clip, so the rescaled histogram is
     the pushforward of q0's histogram and the mask `rescaled > t` is one
     comparison of q0 against the largest original bin that maps at or below
-    t. Constant images give an all-False mask.
+    t. Constant images (a DoG range below a relative 1e-7: a constant source
+    can carry ~1e-8 of filter rounding rather than an exactly equal field)
+    give 65535, an all-False mask.
     """
     _check_method(method)
-    b, h, w = q0.shape
-    n = h * w
-    dev = q0.device
-    counts = torch.stack([histogram_int(q, _BINS)[0] for q in q0])
+    b = counts.shape[0]
+    dev = counts.device
     cum = torch.cumsum(counts, -1).to(torch.float32)  # exact: n < 2^24
 
     p1 = _percentile_from_cum(cum, float(percentile_range[0]), n)
@@ -137,12 +156,23 @@ def mask_from_q0(
 
     # pull the threshold back: largest original bin whose image is <= t2
     c0 = (j <= t2[:, None]).sum(-1) - 1
-    mask = q0 > c0[:, None, None]
-
-    # constant images -> all background (relative epsilon: a constant source
-    # can carry ~1e-8 of filter rounding rather than an exactly equal field)
     tol = 1e-7 * torch.maximum(mn.abs(), mx.abs()).clamp_min(1.0)
-    return mask & ((mx - mn) > tol)[:, None, None]
+    return torch.where((mx - mn) > tol, c0, _BINS - 1)
+
+
+def mask_from_q0(
+    q0: torch.Tensor,
+    mn: torch.Tensor,
+    mx: torch.Tensor,
+    percentile_range: tuple[float, float] = (0.5, 99.9),
+    method: str = "otsu",
+) -> torch.Tensor:
+    """Foreground mask (B, H, W) from quantized DoG images: `q0 > c0` with
+    c0 from `cutoff_from_hist` on the images' own level counts. Constant
+    images give an all-False mask."""
+    _, h, w = q0.shape
+    c0 = cutoff_from_hist(q0_histograms(q0), h * w, mn, mx, percentile_range, method)
+    return q0 > c0[:, None, None]
 
 
 def fused_classical_mask(

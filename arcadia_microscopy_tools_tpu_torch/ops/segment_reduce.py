@@ -3,12 +3,15 @@
 Counterpart of `arcadia_microscopy_tools_tpu/ops/segment_reduce.py`. The
 JAX package computes its reductions as one-hot matmuls with bf16 hi/lo
 splits because scatters and gathers are slow on the TPU; here they are what
-they compute: float64 `index_add_` for sums (exact for the counts and
-coordinate sums the paths take), `scatter_reduce` for minimums and
-maximums, and plain indexing for lookups. The JAX package's centred
-moments and variances (`segment_central_moments`, `segment_variances`) are
-a second `segment_sums` pass over deviations from the per-segment means,
-looked up with `table_lookup`.
+they compute, and every one gives the same bits on every run:
+
+- sums of integer quantities are int64 `index_add_`: exact, so the order of
+  the card's atomics cannot show, and partial sums over any split of the
+  pixels add up to the whole;
+- sums of float quantities are float64 in a fixed order (`index_put_` with
+  accumulate sorts by segment on the card; the CPU adds in index order);
+- minimums and maximums are `scatter_reduce`, which no order changes;
+- lookups are plain indexing.
 """
 
 from __future__ import annotations
@@ -32,17 +35,25 @@ def segment_sums(
     where: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sums of (B, Q, N) `quantities` over each image's (B, N) segment ids
-    in [0, num_segments): (B, Q, num_segments) float64. With a (B, N) bool
-    `where`, only those elements count (on the card, leaving out a large
-    background segment spares millions of atomics on one address)."""
+    in [0, num_segments): (B, Q, num_segments), int64 for integer (and
+    bool) quantities, exact while each sum stays below 2^63 (the sum of
+    squares of a 2048^2 uint16 well stays below 2^54), and float64 in a
+    fixed order for float quantities. With a (B, N) bool `where`, only
+    those elements count (on the card, leaving out a large background
+    segment spares millions of atomics on one address)."""
     b, q, n = quantities.shape
+    exact = not quantities.dtype.is_floating_point
+    dtype = torch.int64 if exact else torch.float64
     flat = _flat_ids(segment_ids, num_segments)
-    vals = quantities.double().permute(0, 2, 1).reshape(b * n, q)
+    vals = quantities.to(dtype).permute(0, 2, 1).reshape(b * n, q)
     if where is not None:
         keep = where.reshape(-1)
         flat, vals = flat[keep], vals[keep]
-    out = torch.zeros((b * num_segments, q), dtype=torch.float64, device=quantities.device)
-    out.index_add_(0, flat, vals)
+    out = torch.zeros((b * num_segments, q), dtype=dtype, device=quantities.device)
+    if exact or not out.is_cuda:
+        out.index_add_(0, flat, vals)
+    else:  # the card's index_add_ adds floats in the order its atomics land
+        out.index_put_((flat,), vals, accumulate=True)
     return out.reshape(b, num_segments, q).permute(0, 2, 1)
 
 

@@ -1,4 +1,4 @@
-"""End-to-end plate pipeline on one device.
+"""End-to-end plate pipeline on one device or on a mesh of ranks.
 
 Counterpart of `arcadia_microscopy_tools_tpu/parallel/plate.py`: well images
 -> a mask -> per-cell morphology and per-channel intensity, for a whole
@@ -12,12 +12,23 @@ methods make the mask:
   (`models.flows.compute_masks_sparse_compact`), whose listed pixels are
   measured directly.
 
+On a mesh (`parallel.mesh`; one rank per device, `torch.distributed`), each
+rank decodes, stages and runs only its block of every batch, and the packed
+per-cell columns and health scalars are all-gathered, so every rank builds
+the same `PlateResults`. With space_parallelism > 1 the classical program
+runs on row slabs of each well: the JAX package leaves those collectives to
+XLA's partitioner and turns its Pallas kernels off there; here the cross-
+shard steps are written out (`_classical_rows`) and the CUDA CC kernels run
+on every slab. Its packed columns and health equal the single device's bit
+for bit.
+
 The runner keeps the reference's host-side contract:
 - per-well failure isolation: a failed well yields None and a
   SegmentationWarning, and the run continues;
 - checkpoint/resume: per-well CSV tables plus a `manifest.json` under
   `checkpoint_dir`, in the reference's format, so a plate begun by either
-  runner resumes in the other;
+  runner resumes in the other (on a mesh rank 0 reads and writes them and
+  shares what it read);
 - capacity escalation: wells whose health scalars report a foreground,
   cell-count or boundary-edge overflow (or a CC certificate failure) are
   re-dispatched with 4x and then 16x capacities before they are failed;
@@ -34,11 +45,12 @@ import warnings
 from collections import deque
 from dataclasses import dataclass, replace
 from pathlib import Path
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import pandas as pd
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.channels import Channel
@@ -46,12 +58,36 @@ from ..core.microplate import MicroplateLayout
 from ..exceptions import SegmentationWarning
 from ..ops.basic import rescale_by_percentile, subtract_background_dog
 from ..ops.compaction import compact_by_root
-from ..ops.filters import to_float
-from ..ops.fused import HIST_THRESHOLD_METHODS, _percentile_from_cum, fused_classical_mask
+from ..ops.filters import (
+    _pad_last2,
+    centre_on_midrange,
+    gaussian_radius,
+    gaussian_valid,
+    to_float,
+)
+from ..ops.fused import (
+    HIST_THRESHOLD_METHODS,
+    _percentile_from_cum,
+    cutoff_from_hist,
+    fused_classical_mask,
+    q0_histograms,
+    quantize,
+)
 from ..ops.labeling import component_roots
 from ..ops.morphology import binary_opening, disk
-from ..ops.regionprops import measure_compacted
+from ..ops.regionprops import measure_compacted, measure_segments, perimeter_classes
 from ..ops.threshold import GLOBAL_METHODS
+from .collectives import all_gather, all_reduce, group_rank_size, halo_rows
+from .mesh import (
+    HOST_AXIS,
+    SPACE_AXIS,
+    Mesh,
+    MeshConfig,
+    Shard,
+    create_mesh,
+    plate_sharding_multihost,
+    well_sharding,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -304,18 +340,215 @@ def measure_unet_masks(labels, lab_c, idx, valid, stack: torch.Tensor, max_cells
     return measure_compacted(key // (n + 1), idx_s, roots, stack, max_cells, w)
 
 
+# the ROADMAP queue item that ports what a spatially sharded mesh cannot run yet
+_SPATIAL_NEXT = "ROADMAP.md queue 1, item 1: the spatially sharded U-Net"
+
+
+@dataclass(frozen=True)
+class RowSlab:
+    """This rank's rows [row0, row0 + H_local) of wells of `height` rows;
+    the other slabs of each well lie, in row order, on the ranks of
+    `group` (the mesh's space group)."""
+
+    group: Any
+    row0: int
+    height: int
+
+
+def _check_spatial(config: PlateRunConfig) -> None:
+    """Raise for the configurations the row-sharded program does not run."""
+    if config.method == "unet":
+        raise NotImplementedError(
+            "method='unet' with space_parallelism > 1: the U-Net's GroupNorm statistics and "
+            f"the flow tracking cross row shards ({_SPATIAL_NEXT}); shard the wells instead"
+        )
+    if config.threshold_method not in HIST_THRESHOLD_METHODS or config.opening_radius > 0:
+        raise NotImplementedError(
+            "space_parallelism > 1 runs the fused histogram frontend "
+            f"({', '.join(HIST_THRESHOLD_METHODS)}, opening_radius=0); "
+            f"got threshold_method={config.threshold_method!r}, "
+            f"opening_radius={config.opening_radius}"
+        )
+
+
+def _row_slab_dog(seg: torch.Tensor, config: PlateRunConfig, slab: RowSlab) -> torch.Tensor:
+    """The DoG of each well's rows on this slab: the midrange from every
+    slab, then each Gaussian on the slab padded with its neighbours' rows
+    (the image's edge rows past its ends) and cropped back - the same
+    convolution inputs, so the same bits, as the whole image's."""
+    group = slab.group
+    flat = seg.flatten(1)
+    lo = all_reduce(flat.amin(1), "min", group)
+    hi = all_reduce(flat.amax(1), "max", group)
+    centred = centre_on_midrange(seg, lo, hi)
+    sigmas = (config.low_sigma, config.high_sigma)
+    radii = [gaussian_radius(s) if s > 0 else 0 for s in sigmas]
+    halo = max(radii)
+    padded = halo_rows(centred, halo, group)
+    hs = seg.shape[1]
+
+    def blur(sigma: float, r: int) -> torch.Tensor:
+        if sigma <= 0:
+            return centred
+        rows = padded[:, halo - r : halo + hs + r]
+        return gaussian_valid(_pad_last2(rows, 0, r, "nearest"), sigma)
+
+    return blur(sigmas[0], radii[0]) - blur(sigmas[1], radii[1])
+
+
+def _merge_row_slabs(roots: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Relabel (B, H_local, W) int64 component roots, global linear indices
+    of this slab's components (sentinel n on background), to the roots of
+    the whole image: pairs of 8-connected labels across every slab edge are
+    gathered, every rank runs the same exact min-label union over them to
+    its fixpoint (`labeling._merge_boundary_pairs` one level up, uncapped),
+    and every pixel takes its merged root."""
+    _, size = group_rank_size(group)
+    if size == 1:
+        return roots
+    b, _, w = roots.shape
+    edges = all_gather(torch.stack([roots[:, 0], roots[:, -1]], 1), group)  # (S, B, 2, W)
+    upper, lower = edges[:-1, :, 1], edges[1:, :, 0]  # each slab's last row, the next one's first
+    fill = lower.new_full((*lower.shape[:-1], 1), n)
+    pairs_b = [lower, torch.cat([lower[..., 1:], fill], -1), torch.cat([fill, lower[..., :-1]], -1)]
+    la = upper.repeat(3, 1, 1).transpose(0, 1).reshape(b, -1)
+    lb = torch.cat(pairs_b).transpose(0, 1).reshape(b, -1)
+    real = (la < n) & (lb < n) & (la != lb)
+    if not bool(real.any()):
+        return roots
+    offset = torch.arange(b, device=roots.device, dtype=torch.int64)[:, None] * (n + 1)
+    ga, gb = (la + offset)[real], (lb + offset)[real]
+    keys, inv = torch.unique(torch.cat([ga, gb]), return_inverse=True)
+    ua, ub = inv[: ga.numel()], inv[ga.numel() :]
+    # parents as indices into the sorted keys: the smallest index is the
+    # smallest root; min propagation with pointer jumping to the fixpoint
+    parent = torch.arange(keys.numel(), device=roots.device)
+    while True:
+        m = torch.minimum(parent[ua], parent[ub])
+        new = parent.scatter_reduce(0, ua, m, "amin").scatter_reduce_(0, ub, m, "amin")
+        new = new[new]
+        if torch.equal(new, parent):
+            break
+        parent = new
+    flat = roots.reshape(b, -1)
+    gv = flat + offset
+    pos = torch.searchsorted(keys, gv).clamp_max(keys.numel() - 1)
+    hit = (keys[pos] == gv) & (flat < n)
+    return torch.where(hit, keys[parent[pos]] - offset, flat).reshape(roots.shape)
+
+
+def _within_capacity(comp, fg, num, cap: int, group) -> torch.Tensor:
+    """(B, P) bool: the slab's foreground pixels among the first `cap` of
+    the whole image in (root, linear index) order - the pixels the single
+    device's compaction keeps when a well overflows. `comp` is each pixel's
+    0-based component rank in [0, num)."""
+    b, p = comp.shape
+    me, _ = group_rank_size(group)
+    key = torch.where(fg, comp, num)
+    local = torch.zeros((b, num + 1), dtype=torch.int64, device=comp.device)
+    local.scatter_add_(1, key, torch.ones_like(key))
+    areas = all_gather(local[:, :num], group)  # (S, B, num)
+    start = torch.cumsum(areas.sum(0), 1) - areas.sum(0)  # component starts in the image
+    before = areas[:me].sum(0)  # the component's pixels on the slabs above
+    # rank within the component on this slab: pixels are in linear order
+    order = torch.sort(key, dim=1, stable=True)
+    srt = order.values
+    first = torch.searchsorted(srt, srt)  # first slot of each run
+    run = torch.arange(p, device=comp.device).expand(b, p) - first
+    rank = torch.empty_like(run).scatter_(1, order.indices, run)
+    c = comp.clamp_max(max(num - 1, 0))
+    pos = torch.gather(start, 1, c) + torch.gather(before, 1, c) + rank
+    return fg & (pos < cap)
+
+
+def _classical_rows(img: torch.Tensor, stack: torch.Tensor, config: PlateRunConfig, slab: RowSlab):
+    """The classical well program on this rank's row slab of each well.
+
+    (a) the DoG on a halo-padded slab (`_row_slab_dog`); (b) one local
+    65536-bin histogram per slab, all-reduced, then the percentile and
+    threshold decisions from the whole well's counts; (c) `component_roots`
+    on the slab through the CUDA CC kernels, roots turned into the well's
+    linear indices; (d) the cross-slab merge (`_merge_row_slabs`); (e) the
+    certificate ANDed over slabs, the component count and the foreground
+    overflow of the whole well, and cell slots in root order; (f) the exact
+    partial sums of `measure_segments`, reduced over slabs, with the
+    perimeter read on two halo rows of merged roots. Returns what the
+    single-device program returns, with the same bits on every slab."""
+    group, row0, height = slab.group, slab.row0, slab.height
+    seg = to_float(img[:, config.seg_channel_index])
+    b, hs, w = seg.shape
+    n = height * w
+    dev = seg.device
+
+    dog = _row_slab_dog(seg, config, slab)
+    flat = dog.flatten(1)
+    mn = all_reduce(flat.amin(1), "min", group)
+    mx = all_reduce(flat.amax(1), "max", group)
+    q0 = quantize(dog, mn, mx)
+    counts = all_reduce(q0_histograms(q0), "sum", group)
+    c0 = cutoff_from_hist(counts, n, mn, mx, (0.5, 99.9), config.threshold_method)
+    mask = q0 > c0[:, None, None]
+
+    local, converged = component_roots(mask, pair_cap=config.pair_cap)
+    roots = torch.where(mask, local.long() + row0 * w, n)
+    roots = _merge_row_slabs(roots, n, group)
+    converged = all_reduce(converged.to(torch.int32), "min", group) > 0
+
+    flat = roots.reshape(b, hs * w)
+    fg = flat < n
+    pix = torch.arange(row0 * w, row0 * w + hs * w, device=dev)
+    # each component's root pixel lies on exactly one slab: slabs list the
+    # roots they hold, in order, and every slab learns the whole list
+    own = torch.sort(torch.where(fg & (flat == pix), flat, n), 1).values
+    held = all_gather((own < n).sum(1), group)  # (S, B)
+    num = held.sum(0)
+    most = max(1, int(held.max()))  # one padding column when no slab holds a root
+    roots_all = torch.sort(all_gather(own[:, :most], group).permute(1, 0, 2).reshape(b, -1), 1).values
+    comp = torch.searchsorted(roots_all, torch.where(fg, flat, n))
+    fg_count = all_reduce(fg.sum(1), "sum", group)
+    cap = foreground_capacity(config, height, w)
+    overflow = fg_count > cap
+    keep = fg
+    if bool(overflow.any()):
+        keep = _within_capacity(comp, fg, int(num.max()), cap, group)
+
+    labels = torch.where(roots < n, roots + 1, 0)
+    pclass = perimeter_classes(halo_rows(labels, 2, group, fill=0))[:, 2 : 2 + hs].reshape(b, -1)
+    ys = (torch.arange(hs, device=dev) + row0).repeat_interleave(w)
+    xs = torch.arange(w, device=dev).repeat(hs)
+    props, stats = measure_segments(
+        torch.where(keep, comp + 1, 0).clamp_max(config.max_cells),
+        keep,
+        ys.expand(b, -1),
+        xs.expand(b, -1),
+        pclass,
+        stack.reshape(b, stack.shape[1], -1),
+        config.max_cells,
+        root=flat,
+        reduce=lambda t, op: all_reduce(t, op, group),
+    )
+    return props, stats, (num, overflow, converged), None
+
+
 def _build_well_program(
-    config: PlateRunConfig, n_channels: int, network=None, debug_labels: bool = False
+    config: PlateRunConfig,
+    n_channels: int,
+    network=None,
+    debug_labels: bool = False,
+    slab: RowSlab | None = None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, ...]]:
     """The batched well program: (B, C, H, W) uint16 wells -> packed
     (B, max_cells, 15 + 4 * C_measured) float32 per-cell columns and (B, 3)
     int32 health scalars (component count, foreground overflow, CC
     convergence certificate). The "unet" method needs `network`
     (`unet_network`); `debug_labels` (unet only) also returns its (B, H, W)
-    label images."""
+    label images. With a `slab` the program takes this rank's rows of each
+    well (classical method only) and returns the whole wells' results."""
     _check_supported(config)
     if debug_labels and config.method != "unet":
         raise ValueError("debug_labels is only supported for method='unet'")
+    if slab is not None:
+        _check_spatial(config)
     seg_idx = config.seg_channel_index
     measure_idx = (
         config.measure_channel_indices
@@ -324,6 +557,8 @@ def _build_well_program(
     )
 
     def classical(img: torch.Tensor, stack: torch.Tensor):
+        if slab is not None:
+            return _classical_rows(img, stack, config, slab)
         seg_img = to_float(img[:, seg_idx])
         h, w = seg_img.shape[-2:]
         if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
@@ -353,8 +588,10 @@ def _build_well_program(
 
     def well_fn(img: torch.Tensor) -> tuple[torch.Tensor, ...]:
         # convert before any indexing: on CUDA, uint16 tensors support little
-        # beyond copies and casts
-        stack = img.to(torch.float32)[:, list(measure_idx)]
+        # beyond copies and casts. Integer channels stay integers, which the
+        # measurement sums exactly.
+        wide = img.to(torch.float32 if img.dtype.is_floating_point else torch.int32)
+        stack = wide[:, list(measure_idx)]
         method = classical if config.method == "classical" else unet
         props, stats, health, labels = method(img, stack)
         columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
@@ -398,21 +635,34 @@ def _progress_bar(total: int):
 
 
 class PlateRunner:
-    """Runs a plate of wells through the fused pipeline on one device."""
+    """Runs a plate of wells through the fused pipeline on one device or on
+    a mesh of ranks (one device each)."""
 
     def __init__(
         self,
         config: PlateRunConfig | None = None,
-        checkpoint_dir: str | Path | None = None,
-        device: str | torch.device | None = None,
+        mesh_config: MeshConfig | None = None,
+        *,
         unet_params=None,
+        checkpoint_dir: str | Path | None = None,
+        mesh: Mesh | None = None,
+        device: str | torch.device | None = None,
     ):
-        """`device` None means the CUDA card, and raises when there is none;
-        pass device="cpu" to run the plain versions of the kernels.
-        `unet_params` are the U-Net weights of the "unet" method, in any
-        form `unet_network` takes; None gives seeded weights."""
+        """`mesh` overrides `mesh_config` with a pre-built mesh (a
+        `create_multihost_mesh(...)` result spreads each batch over the
+        hosts axis too); without either, `create_mesh()` spans every rank of
+        the default process group, or is the 1 x 1 mesh of this process when
+        none is initialised. On a mesh every rank builds the runner and calls
+        `run` with the same arguments. `device` None means the CUDA card (each rank's current
+        one), and raises when there is none; pass device="cpu" to run the
+        plain versions of the kernels. `unet_params` are the U-Net weights
+        of the "unet" method, in any form `unet_network` takes; None gives
+        seeded weights."""
         self.config = config or PlateRunConfig()
         _check_supported(self.config)
+        self.mesh = mesh if mesh is not None else create_mesh(mesh_config)
+        if self.mesh.shape[SPACE_AXIS] > 1:
+            _check_spatial(self.config)
         self.device = resolve_device(device)
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
         self.network = (
@@ -459,7 +709,79 @@ class PlateRunner:
         )
 
     def _batch_size(self) -> int:
-        return self.config.batch_size if self.config.batch_size is not None else DEFAULT_BATCH
+        """Wells per batch: `config.batch_size`, else DEFAULT_BATCH for each
+        rank along the batch axes (hosts x wells; JAX `:540-549` takes one
+        well per device)."""
+        if self.config.batch_size is not None:
+            return self.config.batch_size
+        return DEFAULT_BATCH * self._input_sharding().batch_count
+
+    def _input_sharding(self) -> Shard:
+        """What this rank owns of each batch."""
+        spatial = self.mesh.shape[SPACE_AXIS] > 1
+        if HOST_AXIS in self.mesh.shape:
+            return plate_sharding_multihost(self.mesh, spatial=spatial)
+        return well_sharding(self.mesh, spatial=spatial)
+
+    def _slab(self, height: int) -> tuple[slice, RowSlab | None]:
+        """This rank's rows of wells of `height` rows and, on a spatial
+        mesh, the slab the well program takes."""
+        shard = self._input_sharding()
+        if shard.space_count == 1:
+            return slice(0, height), None
+        rows = shard.image_rows(height)
+        return rows, RowSlab(self.mesh.group(SPACE_AXIS), rows.start, height)
+
+    def _get_compiled(
+        self, n_channels: int, shape: tuple[int, int], config: PlateRunConfig | None = None
+    ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+        """The well program over a whole (B, C, H, W) batch on this mesh,
+        the counterpart of the JAX runner's jitted, sharded program: every
+        rank passes the same batch, runs its share (its wells, its rows),
+        and gets every well's packed columns and health, all-gathered."""
+        config = config or self.config
+        shard = self._input_sharding()
+        rows, slab = self._slab(shape[0])
+        program = _build_well_program(config, n_channels, self.network, slab=slab)
+        n_measured = len(config.measure_channel_indices or range(n_channels))
+        width = len(_PROP_COLUMNS) + len(_INTENSITY_STATS) * n_measured
+
+        def run(batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            b = batch.shape[0]
+            mine = batch[shard.batch_rows(b)][..., rows, :]
+            per = -(-b // shard.batch_count)
+            packed = torch.zeros((per, config.max_cells, width), device=self.device)
+            health = torch.zeros((per, 3), dtype=torch.int32, device=self.device)
+            if mine.shape[0]:
+                got = program(mine.to(self.device))
+                packed[: mine.shape[0]], health[: mine.shape[0]] = got
+            if self.mesh.size == 1:
+                return packed[:b], health[:b]
+            out = []
+            for t in (packed, health):
+                parts = all_gather(t, dist.group.WORLD)  # ranks in mesh order
+                parts = parts.reshape(-1, shard.space_count, *t.shape)[:, 0]
+                out.append(parts.reshape(-1, *t.shape[1:])[:b])
+            return tuple(out)
+
+        return run
+
+    def _gather(self, entries: list) -> list:
+        """Every rank's `entries` in rank order (this rank's alone on a 1 x 1
+        mesh)."""
+        if self.mesh.size == 1:
+            return entries
+        out = [None] * self.mesh.size
+        dist.all_gather_object(out, entries)
+        return [e for part in out for e in part]
+
+    def _shared(self, obj):
+        """Rank 0's `obj` on every rank."""
+        if self.mesh.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=int(self.mesh.devices.flat[0]))
+        return box[0]
 
     def _results_to_table(
         self,
@@ -545,6 +867,11 @@ class PlateRunner:
     ) -> PlateResults:
         """Process every well of `layout`.
 
+        On a mesh every rank calls this with the same arguments: each rank
+        decodes only its contiguous block of every batch (the ranks of one
+        space group decode the same wells and stage their own rows), and
+        every rank returns the full results.
+
         Args:
             layout: The plate layout (well ids drive scheduling).
             image_source: Mapping or callable well_id -> (C, H, W) uint16
@@ -571,8 +898,26 @@ class PlateRunner:
             "assemble_s": 0.0,
             "capacity_retries": 0.0,
         }
-        manifest = self._load_manifest()
+        shard = self._input_sharding()
+        spatial = shard.space_count > 1
+        lead = self.mesh.rank == int(self.mesh.devices.flat[0])
+
+        def resume() -> tuple[dict, dict]:
+            manifest = self._load_manifest()
+            cached = {w: self._load_well(manifest, w) for w in layout.well_ids}
+            return manifest, {w: t for w, t in cached.items() if t is not None}
+
+        manifest, cached = self._shared(resume() if lead else None)
         tables: dict[str, pd.DataFrame | None] = {}
+        pending_ids: list[str] = []
+        for well_id in layout.well_ids:
+            if well_id in cached:
+                tables[well_id] = cached[well_id]
+            else:
+                pending_ids.append(well_id)
+
+        batch_size = self._batch_size()
+        batches = [pending_ids[i : i + batch_size] for i in range(0, len(pending_ids), batch_size)]
 
         def fetch(well_id: str) -> np.ndarray | None:
             try:
@@ -589,40 +934,28 @@ class PlateRunner:
                 )
                 return None
 
-        pending_ids: list[str] = []
-        for well_id in layout.well_ids:
-            cached = self._load_well(manifest, well_id)
-            if cached is not None:
-                tables[well_id] = cached
-            else:
-                pending_ids.append(well_id)
-
-        batch_size = self._batch_size()
-        batches = [pending_ids[i : i + batch_size] for i in range(0, len(pending_ids), batch_size)]
-
-        def fail(ok_ids: list[str], e: Exception) -> None:
-            logger.exception("device batch failed for wells %s", ok_ids)
-            warnings.warn(
-                f"Device batch failed for wells {ok_ids}: {e}",
-                SegmentationWarning,
-                stacklevel=3,
-            )
-            for well_id in ok_ids:
-                tables[well_id] = None
-
         def dispatch(
             images: list[np.ndarray], ok_ids: list[str], config: PlateRunConfig, retryable: bool
         ) -> dict | None:
-            """Stage one batch of same-shape wells and run the well program."""
+            """Stage this rank's share of one batch of same-shape wells and
+            run the well program."""
             t0 = time.time()
             try:
-                staged = torch.from_numpy(np.stack(images)).to(self.device)
-                n_channels = staged.shape[1]
-                image_shape = tuple(staged.shape[-2:])
-                packed, health = _build_well_program(config, n_channels, self.network)(staged)
+                rows, slab = self._slab(images[0].shape[-2])
+                batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
+                staged = torch.from_numpy(batch).to(self.device)
+                program = _build_well_program(config, staged.shape[1], self.network, slab=slab)
+                packed, health = program(staged)
             except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
-                fail(ok_ids, e)
-                return None
+                if spatial:  # the other slabs of these wells wait in its collectives
+                    raise
+                logger.exception("device batch failed for wells %s", ok_ids)
+                warnings.warn(
+                    f"Device batch failed for wells {ok_ids}: {e}",
+                    SegmentationWarning,
+                    stacklevel=3,
+                )
+                return {"failed": ok_ids}
             finally:
                 timings["device_s"] += time.time() - t0
             return {
@@ -632,75 +965,103 @@ class PlateRunner:
                 "retryable": retryable,
                 "packed": packed,
                 "health": health,
-                "n_channels": n_channels,
-                "image_shape": image_shape,
+                "image_shape": tuple(images[0].shape[-2:]),
             }
 
-        def drain(rec: dict | None, retry: dict[str, np.ndarray]) -> None:
-            """Read one dispatched batch back and turn it into tables."""
-            if rec is None:
-                return
-            config: PlateRunConfig = rec["config"]
-            ok_ids: list[str] = rec["ok_ids"]
+        retry_ids: list[str] = []
+        retry_images: dict[str, np.ndarray] = {}
+
+        def drain(recs: list[dict], failed: list[str]) -> None:
+            """Read this rank's dispatched batches back, gather every rank's
+            per-well results and turn them into tables (the same on every
+            rank)."""
             t0 = time.time()
-            try:
-                packed_h = rec["packed"].cpu().numpy()
-                health_raw = rec["health"].cpu().numpy()
-            except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
-                fail(ok_ids, e)
-                return
-            finally:
-                timings["device_s"] += time.time() - t0
+            entries: list[tuple[str, tuple | None]] = [(w, None) for w in failed]
+            owned: dict[str, np.ndarray] = {}
+            for rec in recs:
+                if "failed" in rec:
+                    entries += [(w, None) for w in rec["failed"]]
+                    continue
+                try:
+                    packed_h = rec["packed"].cpu().numpy()
+                    health_h = rec["health"].cpu().numpy()
+                except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
+                    logger.exception("device batch failed for wells %s", rec["ok_ids"])
+                    warnings.warn(
+                        f"Device batch failed for wells {rec['ok_ids']}: {e}",
+                        SegmentationWarning,
+                        stacklevel=3,
+                    )
+                    entries += [(w, None) for w in rec["ok_ids"]]
+                    continue
+                for i, well_id in enumerate(rec["ok_ids"]):
+                    owned[well_id] = rec["images"][i]
+                    entries.append((well_id, (packed_h[i], health_h[i], rec["config"],
+                                              rec["retryable"], rec["image_shape"])))
+            merged: dict[str, tuple | None] = {}
+            for well_id, result in self._gather(entries):  # slabs of one well report alike
+                merged.setdefault(well_id, result)
+            timings["device_s"] += time.time() - t0
 
             t0 = time.time()
-            measure_idx = (
-                config.measure_channel_indices
-                if config.measure_channel_indices is not None
-                else tuple(range(rec["n_channels"]))
-            )
-            props_h, intensity_h, health_h = _unpack_outputs(packed_h, health_raw, measure_idx)
-            for i, well_id in enumerate(ok_ids):
-                problem = self._well_health_problem(health_h, i, config)
+            for well_id, result in merged.items():
+                if result is None:
+                    tables[well_id] = None
+                    continue
+                packed_row, health_row, config, retryable, image_shape = result
+                measure_idx = (
+                    config.measure_channel_indices
+                    if config.measure_channel_indices is not None
+                    else tuple(range((packed_row.shape[-1] - len(_PROP_COLUMNS))
+                                     // len(_INTENSITY_STATS)))
+                )
+                props_h, intensity_h, health_d = _unpack_outputs(
+                    packed_row[None], health_row[None], measure_idx
+                )
+                problem = self._well_health_problem(health_d, 0, config)
                 if problem is not None:
                     kind, message = problem
-                    if kind == "capacity" and rec["retryable"]:
-                        retry[well_id] = rec["images"][i]
+                    if kind == "capacity" and retryable:
+                        retry_ids.append(well_id)
+                        if well_id in owned:
+                            retry_images[well_id] = owned[well_id]
                         timings["capacity_retries"] += 1
                         continue
                     warnings.warn(f"Well {well_id}: {message}", SegmentationWarning, stacklevel=2)
                     tables[well_id] = None
                     continue
-                table = self._results_to_table(
-                    props_h, intensity_h, channels, i, rec["image_shape"]
-                )
+                table = self._results_to_table(props_h, intensity_h, channels, 0, image_shape)
                 tables[well_id] = table
-                self._record_well(manifest, well_id, table)
+                if lead:
+                    self._record_well(manifest, well_id, table)
             timings["assemble_s"] += time.time() - t0
 
-        def submit_batch(images, ok_ids, inflight: deque, retry) -> None:
-            """Dispatch one decoded batch, grouped by image shape: a well
-            whose shape differs gets its own dispatch instead of failing its
-            batchmates."""
+        def dispatch_by_shape(images, ok_ids, config, retryable, chunk: int) -> list[dict]:
+            """Dispatch wells grouped by image shape (a well whose shape
+            differs gets its own dispatch instead of failing its
+            batchmates), at most `chunk` wells per dispatch."""
             groups: dict[tuple, list[int]] = {}
             for i, img in enumerate(images):
                 groups.setdefault(img.shape, []).append(i)
+            recs = []
             for idxs in groups.values():
-                rec = dispatch(
-                    [images[i] for i in idxs], [ok_ids[i] for i in idxs], self.config, True
-                )
-                if rec is not None:
-                    inflight.append(rec)
-            while len(inflight) > max_inflight:
-                drain(inflight.popleft(), retry)
+                for k in range(0, len(idxs), chunk):
+                    part = idxs[k : k + chunk]
+                    rec = dispatch([images[i] for i in part], [ok_ids[i] for i in part],
+                                   config, retryable)
+                    if rec is not None:
+                        recs.append(rec)
+            return recs
 
         def load_batch(batch_ids: list[str]):
-            """Decode one batch (runs on a prefetch worker; touches no shared
-            state). Wall and thread-CPU seconds are summed per well."""
+            """Decode this rank's block of one batch (runs on a prefetch
+            worker; touches no shared state). Wall and thread-CPU seconds
+            are summed per well."""
             images: list[np.ndarray] = []
             ok_ids: list[str] = []
             failed: list[str] = []
             wall = cpu = 0.0
-            for well_id in batch_ids:
+            for well_id in batch_ids[shard.batch_rows(len(batch_ids))]:
                 t0, c0 = time.time(), time.thread_time()
                 img = fetch(well_id)
                 wall += time.time() - t0
@@ -710,18 +1071,20 @@ class PlateRunner:
                 else:
                     images.append(img)
                     ok_ids.append(well_id)
-            return images, ok_ids, failed, (wall, cpu, len(batch_ids))
+            return images, ok_ids, failed, (wall, cpu, len(images) + len(failed))
 
-        def record_batch(loaded):
+        def submit(loaded, inflight: deque) -> None:
             images, ok_ids, failed, (wall, cpu, n) = loaded
-            for well_id in failed:
-                tables[well_id] = None
             timings["decode_s"] += wall
             timings["decode_cpu_s"] += cpu
             timings["decode_wells"] += n
-            return images, ok_ids
+            if spatial:
+                images, ok_ids, failed = self._agree_on_slabs(images, ok_ids, failed)
+            inflight.append((dispatch_by_shape(images, ok_ids, self.config, True, batch_size),
+                             failed))
+            while len(inflight) > max_inflight:
+                drain(*inflight.popleft())
 
-        retry: dict[str, np.ndarray] = {}
         inflight: deque = deque()
         progress = _progress_bar(len(batches)) if show_progress else None
         try:
@@ -732,40 +1095,49 @@ class PlateRunner:
                     decoding = deque(pool.submit(load_batch, b) for b in batches[:prefetch])
                     next_idx = min(prefetch, len(batches))
                     while decoding:
-                        images, ok_ids = record_batch(decoding.popleft().result())
+                        loaded = decoding.popleft().result()
                         if next_idx < len(batches):
                             decoding.append(pool.submit(load_batch, batches[next_idx]))
                             next_idx += 1
-                        if images:
-                            submit_batch(images, ok_ids, inflight, retry)
+                        submit(loaded, inflight)
                         if progress is not None:
                             progress.update(1)
             else:
                 for batch_ids in batches:
-                    images, ok_ids = record_batch(load_batch(batch_ids))
-                    if images:
-                        submit_batch(images, ok_ids, inflight, retry)
+                    submit(load_batch(batch_ids), inflight)
                     if progress is not None:
                         progress.update(1)
         finally:
             if progress is not None:
                 progress.close()
         while inflight:
-            drain(inflight.popleft(), retry)
+            drain(*inflight.popleft())
 
         # capacity escalation: re-dispatch dense wells with 4x / 16x the
-        # capacities, grouped by image shape
+        # capacities, each on the ranks that decoded it, grouped by shape
         for level in (1, 2):
-            if not retry:
+            if not retry_ids:  # the same list on every rank
                 break
             esc = self._escalated_config(level)
-            current, retry = retry, {}
-            by_shape: dict[tuple, list[str]] = {}
-            for w in current:
-                by_shape.setdefault(tuple(current[w].shape), []).append(w)
-            for ids in by_shape.values():
-                for i in range(0, len(ids), batch_size):
-                    bids = ids[i : i + batch_size]
-                    drain(dispatch([current[w] for w in bids], bids, esc, level < 2), retry)
+            current = [w for w in retry_ids if w in retry_images]
+            retry_ids.clear()
+            images = [retry_images.pop(w) for w in current]
+            drain(dispatch_by_shape(images, current, esc, level < 2, batch_size), [])
 
         return PlateResults(tables, timings)
+
+    def _agree_on_slabs(self, images, ok_ids, failed):
+        """On a spatial mesh the ranks of a space group decode the same
+        wells: a well counts only if every one of them decoded it with one
+        shape."""
+        group = self.mesh.group(SPACE_AXIS)
+        mine = {w: img.shape for w, img in zip(ok_ids, images)} | {w: None for w in failed}
+        views = [None] * dist.get_world_size(group)
+        dist.all_gather_object(views, mine, group=group)
+        bad = {w for w in mine if any(v.get(w) != mine[w] or v.get(w) is None for v in views)}
+        for w in sorted(bad - set(failed)):
+            warnings.warn(f"Well {w}: decoded differently on another row shard's rank; well failed",
+                          SegmentationWarning, stacklevel=3)
+        keep = [i for i, w in enumerate(ok_ids) if w not in bad]
+        return ([images[i] for i in keep], [ok_ids[i] for i in keep],
+                failed + [w for w in ok_ids if w in bad])

@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port: the classical and U-Net plate
 paths (staged, and from ND2 and Leica LIF files), the deep segmentation
 path, the preprocessing `Pipeline` (also on a LIF timelapse), the per-cell
-analysis and overlays of a well, and the U-Net trainer.
+analysis and overlays of a well, the U-Net trainer, and the plate on a
+mesh of two ranks.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -77,11 +78,9 @@ Phases, each printing its lines:
    (tests/lif_builder.py); `list_image_names` and well 0's pixels and
    inferred channels; `PlateRunner.run` for both methods with an image
    source that calls the port's `load_lif_image`, with their kernel launch
-   counts, each table held against phases 4 and 7's from host arrays by
-   phase 4's rules (cell counts and integer columns equal, orientation
-   modulo pi where it is defined, other floats within 1e-5 relative;
-   whether bit for bit is printed); decode-inclusive wells/s and decode ms
-   per well beside phase 8's ND2 figures;
+   counts, each table held against phases 4 and 7's from host arrays bit
+   for bit (the measurement's sums are exact); decode-inclusive wells/s and
+   decode ms per well beside phase 8's ND2 figures;
 11. LIF timelapse - the timelapse stack as one (T, Y, X) LIF image through
    `MicroscopyImage.from_lif_path(...).device_intensities()` and phase 6's
    local-threshold `Pipeline`: sizes, inferred channel, 8 rank kernel
@@ -108,7 +107,20 @@ Phases, each printing its lines:
    shapes; the per-cell analysis of one well in ms per stage (label, device
    measurement, intensity stack, host columns, all columns, overlays); the
    LIF and training figures of phases 10-12 again;
-14. the `kernels` JSON line, then the card's name and power limit, then
+14. mesh - `measure_compacted` (uint16 and float32 channels),
+   `measure_labels` and `measure_intensity_stack` run twice on well 0 give
+   the same bits; two spawned ranks sharing the card over gloo run the
+   plate on a (wells=2) and a (space=2) mesh and the U-Net plate on
+   (wells=2), each as the sharded well program (packed columns and health
+   equal to phases 4 and 7's bit for bit) and as `PlateRunner.run` (tables
+   bit for bit), with each rank's launch counts (kernels 1-2 on both ranks
+   under space=2, kernels 4-6 on both for the U-Net), then
+   `run_plate_multiprocess` from phase 8's ND2 files (tables equal to phase
+   8's); wells/s of the two-rank runs; a one-rank group with the default
+   backend (NCCL for card tensors) runs `halo_exchange`,
+   `sharded_histogram_uint16` and `sharded_otsu_threshold` against their
+   single-device counterparts;
+15. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -130,6 +142,8 @@ written to DIR/profile_segment.txt.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -604,6 +618,119 @@ def overlays(m, norm: list, channels: list, device) -> tuple:
     return added, blend.create_overlay(norm[0], layers, device=device)
 
 
+def mesh_rank(rank: int, world: int, store: str, data: str, rehearsal: bool) -> None:
+    """One rank of phase 14's two-rank runs, a spawned process; both ranks
+    share the one card. Runs the plate on a (wells=2) and a (space=2) mesh
+    and the U-Net plate on (wells=2), each as the sharded well program on
+    the staged batch and as `PlateRunner.run` from host arrays, then
+    `run_plate_multiprocess` on phase 8's ND2 files, and writes what it saw
+    to DATA/rank<rank>.pkl. Any failure exits non-zero."""
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    m = port_modules()
+    from arcadia_microscopy_tools_tpu_torch.parallel import mesh as pmesh
+    from arcadia_microscopy_tools_tpu_torch.parallel import multiprocess
+
+    dev = torch.device("cpu" if rehearsal else "cuda")
+    sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
+    if not rehearsal:
+        m._build.load_kernel_libraries(KERNEL_LIBRARIES)  # the parent's builds, reused
+    # two ranks on one card: NCCL refuses that; gloo runs on card tensors too
+    multiprocess.initialize_distributed(f"file://{store}", world, rank, backend="gloo")
+    d = Path(data)
+    spec = json.loads((d / "spec.json").read_text())
+    wells = np.load(d / "wells.npy")
+    staged = torch.from_numpy(wells).to(dev)
+    n_ch, size = wells.shape[1], wells.shape[-1]
+    layout = m.pkg.MicroplateLayout([m.microplate.Well(id=w) for w in spec["well_ids"]])
+    source = {w: wells[k] for k, w in enumerate(spec["well_ids"])}
+    configs = {k: m.plate.PlateRunConfig(**spec[k]) for k in ("classical", "unet")}
+    weights = m.weights.load_weights()
+    out = {}
+    for name, method, mesh_config in (("wells=2", "classical", pmesh.MeshConfig()),
+                                      ("space=2", "classical", pmesh.MeshConfig(space_parallelism=2)),
+                                      ("unet wells=2", "unet", pmesh.MeshConfig())):
+        runner = m.plate.PlateRunner(configs[method], mesh_config, device=dev,
+                                     unet_params=weights if method == "unet" else None)
+        reset_all_counts(m)
+        packed, health = runner._get_compiled(n_ch, (size, size))(staged)
+        sync()
+        program_launches = all_counts(m)
+        runner.run(layout, source)  # warm
+        dist.barrier()
+        reset_all_counts(m)
+        t0 = time.perf_counter()
+        res = runner.run(layout, source)
+        sync()
+        out[name] = {"packed": packed.cpu().numpy(), "health": health.cpu().numpy(),
+                     "program_launches": program_launches, "run_launches": all_counts(m),
+                     "wall": time.perf_counter() - t0, "tables": res.tables,
+                     "mesh": repr(runner.mesh)}
+        del runner, packed, health
+    paths = spec["nd2"]
+    multiprocess.run_plate_multiprocess(layout, lambda w: m.nikon.load_nd2(paths[w])[0],
+                                        configs["classical"], device=dev)  # warm
+    dist.barrier()
+    reset_all_counts(m)
+    t0 = time.perf_counter()
+    res = multiprocess.run_plate_multiprocess(layout, lambda w: m.nikon.load_nd2(paths[w])[0],
+                                              configs["classical"], device=dev)
+    sync()
+    out["run_plate_multiprocess"] = {"run_launches": all_counts(m), "tables": res.tables,
+                                     "wall": time.perf_counter() - t0,
+                                     "decode_wells": res.timings["decode_wells"]}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(d / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn_ranks(world: int, data: Path, rehearsal: bool, timeout: float) -> list[dict]:
+    """Run `mesh_rank` on `world` spawned processes and return what each
+    wrote; raises if any exits non-zero or outlives `timeout` seconds (every
+    process is stopped before this returns)."""
+    import pickle
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, str(data / "store"), str(data), rehearsal))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(proc.is_alive() for proc in procs):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the {world} ranks did not finish within {timeout:.0f} s")
+            if any(proc.exitcode not in (None, 0) for proc in procs):
+                break
+            time.sleep(0.2)
+        codes = [proc.exitcode for proc in procs]
+        if any(code != 0 for code in codes if code is not None) or None in codes:
+            raise RuntimeError(f"a rank failed: exit codes {codes}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    out = []
+    for r in range(world):
+        with open(data / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def tree_equal(a, b) -> bool:
+    """Bit-for-bit equality of nested dicts / tuples of tensors."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(tree_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -618,6 +745,13 @@ def main(argv: list[str] | None = None) -> int:
                         help="also trace the segmentation, preprocessing and U-Net plate "
                              "batches")
     args = parser.parse_args(argv)
+    with contextlib.ExitStack() as cleanup:
+        return _smoke(args, cleanup)
+
+
+def _smoke(args, cleanup: contextlib.ExitStack) -> int:
+    """The phases of the module docstring; temporary directories are
+    removed when `cleanup` closes."""
     rehearsal = args.cpu_rehearsal
 
     def say(msg: str) -> None:
@@ -825,7 +959,7 @@ def main(argv: list[str] | None = None) -> int:
 
     program = m.plate._build_well_program(config, n_ch)
     packed, health = program(staged)
-    health = health.cpu().numpy()
+    packed, health = packed.cpu().numpy(), health.cpu().numpy()
     say(f"[plate] health (components, overflow, converged) per well: {health.tolist()}")
     if not ((health[:, 2] == 1).all() and (health[:, 1] == 0).all()
             and (health[:, 0] <= config.max_cells).all()):
@@ -1144,50 +1278,49 @@ def main(argv: list[str] | None = None) -> int:
     from nd2_builder import write_nd2
 
     nd2_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_nd2_"))
-    decode_rows = {}
-    try:
+    cleanup.callback(shutil.rmtree, nd2_dir, ignore_errors=True)
+    decode_rows, nd2_results = {}, {}
+    t0 = time.perf_counter()
+    nd2_paths = {w: write_nd2(nd2_dir / f"{w}.nd2", wells[k], channel_names=ND2_CHANNELS)
+                 for k, w in enumerate(layout.well_ids)}
+    mb = sum(p.stat().st_size for p in nd2_paths.values()) / 2**20
+    say(f"[decode] wrote {n_wells} ND2 files of {n_ch}x{size}x{size} uint16 ({mb:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.1f} s; native planarize library "
+        f"{'built' if m._native.available() else 'missing: the numpy transpose runs'}")
+    if not np.array_equal(m.nikon.load_nd2(nd2_paths["A01"])[0], wells[0]):
+        raise RuntimeError("an ND2 file does not decode to the pixels written")
+
+    def from_nd2(well_id):
+        return m.nikon.load_nd2(nd2_paths[well_id])[0]
+
+    for name, runner_x, want in (("classical", runner, counts), ("unet", unet_runner, unet_counts)):
+        runner_x.run(layout, from_nd2)  # warm
         t0 = time.perf_counter()
-        nd2_paths = {w: write_nd2(nd2_dir / f"{w}.nd2", wells[k], channel_names=ND2_CHANNELS)
-                     for k, w in enumerate(layout.well_ids)}
-        mb = sum(p.stat().st_size for p in nd2_paths.values()) / 2**20
-        say(f"[decode] wrote {n_wells} ND2 files of {n_ch}x{size}x{size} uint16 ({mb:.1f} MiB) in "
-            f"{time.perf_counter() - t0:.1f} s; native planarize library "
-            f"{'built' if m._native.available() else 'missing: the numpy transpose runs'}")
-        if not np.array_equal(m.nikon.load_nd2(nd2_paths["A01"])[0], wells[0]):
-            raise RuntimeError("an ND2 file does not decode to the pixels written")
-
-        def from_nd2(well_id):
-            return m.nikon.load_nd2(nd2_paths[well_id])[0]
-
-        for name, runner_x, want in (("classical", runner, counts), ("unet", unet_runner, unet_counts)):
-            runner_x.run(layout, from_nd2)  # warm
-            t0 = time.perf_counter()
-            runner_x.run(layout, source)  # the same wells from host arrays, for the difference
-            sync()
-            host_wall = time.perf_counter() - t0
-            before = dict(m.nd2.planarize_counts)
-            t0 = time.perf_counter()
-            res = runner_x.run(layout, from_nd2)
-            sync()
-            wall = time.perf_counter() - t0
-            got = [len(res.tables[w]) for w in layout.well_ids]
-            route = {k: m.nd2.planarize_counts[k] - before[k] for k in before}
-            decode_ms = res.timings["decode_s"] / res.timings["decode_wells"] * 1e3
-            decode_cpu_ms = res.timings["decode_cpu_s"] / res.timings["decode_wells"] * 1e3
-            decode_rows[name] = (n_wells / wall, decode_ms, decode_cpu_ms, n_wells / host_wall)
-            say(f"[decode] {name}: PlateRunner.run from ND2 files, {n_wells} wells in {wall:.3f} s, "
-                f"{n_wells / wall:.3f} wells/s including decode (second run; one batch of "
-                f"{n_wells}, decoded by one prefetch worker); decode {decode_ms:.2f} ms per well "
-                f"wall, {decode_cpu_ms:.2f} ms thread CPU; the runner's device_s "
-                f"{res.timings['device_s'] * 1e3:.1f} ms (staging, program, read back), assemble_s "
-                f"{res.timings['assemble_s'] * 1e3:.1f} ms (tables); from host arrays "
-                f"{host_wall:.3f} s, {n_wells / host_wall:.3f} wells/s; planarize per frame "
-                f"{route}; cells per well {got}")
-            if res.failed_wells or got != want:
-                raise RuntimeError(f"{name} from ND2 files: failed {res.failed_wells}, cells {got} "
-                                   f"against {want} from the staged arrays")
-    finally:
-        shutil.rmtree(nd2_dir, ignore_errors=True)
+        runner_x.run(layout, source)  # the same wells from host arrays, for the difference
+        sync()
+        host_wall = time.perf_counter() - t0
+        before = dict(m.nd2.planarize_counts)
+        t0 = time.perf_counter()
+        res = runner_x.run(layout, from_nd2)
+        sync()
+        wall = time.perf_counter() - t0
+        got = [len(res.tables[w]) for w in layout.well_ids]
+        route = {k: m.nd2.planarize_counts[k] - before[k] for k in before}
+        decode_ms = res.timings["decode_s"] / res.timings["decode_wells"] * 1e3
+        decode_cpu_ms = res.timings["decode_cpu_s"] / res.timings["decode_wells"] * 1e3
+        decode_rows[name] = (n_wells / wall, decode_ms, decode_cpu_ms, n_wells / host_wall)
+        nd2_results[name] = res
+        say(f"[decode] {name}: PlateRunner.run from ND2 files, {n_wells} wells in {wall:.3f} s, "
+            f"{n_wells / wall:.3f} wells/s including decode (second run; one batch of "
+            f"{n_wells}, decoded by one prefetch worker); decode {decode_ms:.2f} ms per well "
+            f"wall, {decode_cpu_ms:.2f} ms thread CPU; the runner's device_s "
+            f"{res.timings['device_s'] * 1e3:.1f} ms (staging, program, read back), assemble_s "
+            f"{res.timings['assemble_s'] * 1e3:.1f} ms (tables); from host arrays "
+            f"{host_wall:.3f} s, {n_wells / host_wall:.3f} wells/s; planarize per frame "
+            f"{route}; cells per well {got}")
+        if res.failed_wells or got != want:
+            raise RuntimeError(f"{name} from ND2 files: failed {res.failed_wells}, cells {got} "
+                               f"against {want} from the staged arrays")
 
     # the five real fixtures through the port's reader, segmented on the card
     # against the pinned golden U-Net masks, with the JAX package's gate
@@ -1330,10 +1463,11 @@ def main(argv: list[str] | None = None) -> int:
                 f"decode {decode_ms:.2f} ms per well wall, {decode_cpu_ms:.2f} ms thread CPU (ND2, "
                 f"phase 8: wells/s, decode ms wall, thread CPU {nd2_row}); launches {lif_launches}; "
                 f"tables against phase {4 if name == 'classical' else 7}'s from host arrays: bit for "
-                f"bit {exact}, cell counts and integer columns equal, orientation held modulo pi, "
-                f"worst float relative difference {worst:.2e} ({where or 'none'}; limit 1e-5)")
-            if worst > 1e-5:
-                raise RuntimeError(f"{name} tables from the LIF container differ beyond 1e-5 relative")
+                f"bit {exact} (required: the measurement's sums are exact), worst float relative "
+                f"difference {worst:.2e} ({where or 'none'})")
+            if worst > 1e-5 or not exact:
+                raise RuntimeError(f"{name} tables from the LIF container differ from the runs from "
+                                   f"host arrays (bit for bit {exact}, worst {worst:.2e})")
             if not rehearsal and min(lif_launches[k] for k in lif_kernels[name]) <= 0:
                 raise RuntimeError(f"the LIF {name} plate did not launch its kernels: {lif_launches}")
 
@@ -1809,7 +1943,113 @@ def main(argv: list[str] | None = None) -> int:
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 14. result -----------------------------------------------------------------
+    # -- 14. mesh: exact sums, two ranks on one card, a one-rank NCCL group -----------------
+    # the measurement twice on one well: the same bits (exact int64 sums; float
+    # channels in a fixed order)
+    roots_1, _ = m.labeling.component_roots(masks[:1], pair_cap=config.pair_cap)
+    comp_1 = m.compaction.compact_by_root(roots_1, cap)
+    lbl_1 = m.labeling.label(masks[0])
+    cells_1 = int(lbl_1.max())
+    runs = {
+        "measure_compacted (uint16 channels)": lambda: m.regionprops.measure_compacted(
+            comp_1.seg, comp_1.idx, roots_1, staged[:1], config.max_cells, size),
+        "measure_compacted (float32 channels)": lambda: m.regionprops.measure_compacted(
+            comp_1.seg, comp_1.idx, roots_1, staged[:1].float(), config.max_cells, size),
+        "measure_labels": lambda: m.regionprops.measure_labels(lbl_1, cells_1),
+        "measure_intensity_stack (uint16)": lambda: m.regionprops.measure_intensity_stack(
+            lbl_1, staged[0], cells_1),
+    }
+    for name, fn in runs.items():
+        same = tree_equal(fn(), fn())
+        say(f"[mesh] {name} on well 0 ({cells_1} labels, {n_ch} channels) run twice: the same "
+            f"bits {same}")
+        if not same:
+            raise RuntimeError(f"{name} gives other bits on a second run")
+    del roots_1, comp_1, lbl_1
+
+    # two ranks sharing the card, spawned, over gloo (NCCL refuses two ranks on
+    # one device): the plate as phase 4 on (wells=2) and (space=2) meshes, the
+    # U-Net plate as phase 7 on (wells=2), run_plate_multiprocess from phase 8's
+    # ND2 files; each against the single-process results bit for bit
+    unet_packed, unet_health = (t.cpu().numpy() for t in m.plate._build_well_program(
+        unet_config, n_ch, unet_runner.network)(staged))
+    mesh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    cleanup.callback(shutil.rmtree, mesh_dir, ignore_errors=True)
+    np.save(mesh_dir / "wells.npy", wells)
+    (mesh_dir / "spec.json").write_text(json.dumps({
+        "well_ids": list(layout.well_ids),
+        "classical": dataclasses.asdict(config),
+        "unet": dataclasses.asdict(unet_config),
+        "nd2": {w: str(p) for w, p in nd2_paths.items()},
+    }))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, mesh_dir, rehearsal, timeout=420)
+    say(f"[mesh] two spawned ranks on the one card finished in {time.perf_counter() - t0:.1f} s "
+        f"(start-up, kernel libraries reused, every run below)")
+    wants = {"wells=2": (packed, health, results, ("local_cc", "local_resweep")),
+             "space=2": (packed, health, results, ("local_cc", "local_resweep")),
+             "unet wells=2": (unet_packed, unet_health, unet_results,
+                              ("conv3x3_fused", "lane_moments", "diffuse"))}
+    mesh_rates = {}
+    for name, (want_p, want_h, want_res, kernels_used) in wants.items():
+        for r, got in enumerate(ranks):
+            g = got[name]
+            same_prog = np.array_equal(g["packed"], want_p) and np.array_equal(g["health"], want_h)
+            exact, worst, _ = compare_plate_tables(SimpleNamespace(tables=g["tables"]), want_res,
+                                                   layout.well_ids)
+            say(f"[mesh] {name} rank {r} ({g['mesh']}): packed and health equal to the single "
+                f"process's bit for bit {same_prog}; tables bit for bit {exact}; program launches "
+                f"{g['program_launches']}; PlateRunner.run launches {g['run_launches']}; run "
+                f"{g['wall']:.3f} s")
+            if not (same_prog and exact):
+                raise RuntimeError(f"{name} rank {r} differs from the single-process program")
+            if not rehearsal and min(g["run_launches"][k] for k in kernels_used) <= 0:
+                raise RuntimeError(f"{name} rank {r} did not launch {kernels_used}")
+        mesh_rates[name] = round(n_wells / max(got[name]["wall"] for got in ranks), 3)
+    for r, got in enumerate(ranks):
+        g = got["run_plate_multiprocess"]
+        exact, worst, _ = compare_plate_tables(SimpleNamespace(tables=g["tables"]),
+                                               nd2_results["classical"], layout.well_ids)
+        say(f"[mesh] run_plate_multiprocess from the ND2 files, rank {r}: decoded "
+            f"{g['decode_wells']:.0f} wells, tables equal to phase 8's bit for bit {exact}, "
+            f"launches {g['run_launches']}, {g['wall']:.3f} s")
+        if not exact:
+            raise RuntimeError(f"run_plate_multiprocess rank {r} differs from phase 8")
+    mesh_rates["run_plate_multiprocess (ND2)"] = round(
+        n_wells / max(got["run_plate_multiprocess"]["wall"] for got in ranks), 3)
+    say(f"[mesh] wells/s of the two-rank runs, second run, slowest rank, decode included for ND2: "
+        f"{json.dumps(mesh_rates)} on {smi}; both ranks share one card and talk over gloo "
+        f"through host memory: a cost figure, not scaling")
+    del ranks
+
+    # a one-rank group with the default backend choice (NCCL for card tensors)
+    import torch.distributed as dist
+
+    from arcadia_microscopy_tools_tpu_torch.ops.stats import histogram_int
+    from arcadia_microscopy_tools_tpu_torch.parallel import collectives, multiprocess
+
+    multiprocess.initialize_distributed(f"file://{mesh_dir / 'one_rank'}", 1, 0)
+    try:
+        group = dist.group.WORLD
+        frame = staged[0, 0]
+        x = frame.to(torch.float32)
+        rows = torch.arange(-64, size + 64, device=dev).clamp(0, size - 1)
+        halo_ok = torch.equal(collectives.halo_exchange(x, 64, group), x[rows])
+        hist_ok = torch.equal(collectives.sharded_histogram_uint16(frame, group),
+                              histogram_int(frame, 65536)[0])
+        otsu_ok = torch.equal(collectives.sharded_otsu_threshold(frame, group),
+                              m.threshold.threshold_otsu(frame))
+        say(f"[mesh] one-rank group, backend {dist.get_backend()}, on {x.device} tensors: "
+            f"halo_exchange (64 rows) equal to edge padding {halo_ok}, sharded_histogram_uint16 "
+            f"equal to the histogram {hist_ok}, sharded_otsu_threshold equal to threshold_otsu "
+            f"{otsu_ok}")
+        if not (halo_ok and hist_ok and otsu_ok):
+            raise RuntimeError("a collective on the one-rank group differs from its single-device "
+                               "counterpart")
+    finally:
+        dist.destroy_process_group()
+
+    # -- 15. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

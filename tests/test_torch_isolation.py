@@ -55,6 +55,9 @@ import arcadia_microscopy_tools_tpu_torch.microscopy
 import arcadia_microscopy_tools_tpu_torch.nikon
 import arcadia_microscopy_tools_tpu_torch.models.flows
 import arcadia_microscopy_tools_tpu_torch.parallel.plate
+import arcadia_microscopy_tools_tpu_torch.parallel.mesh
+import arcadia_microscopy_tools_tpu_torch.parallel.collectives
+import arcadia_microscopy_tools_tpu_torch.parallel.multiprocess
 import arcadia_microscopy_tools_tpu_torch.ops
 import arcadia_microscopy_tools_tpu_torch.masks
 import arcadia_microscopy_tools_tpu_torch.measure
