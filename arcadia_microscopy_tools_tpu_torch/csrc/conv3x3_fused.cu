@@ -60,6 +60,14 @@
 //   over it, and one TMA store, which drops what lies outside the image,
 //   overlaps the next tile. At N = 256 the two-stage ring leaves no room for
 //   it, and the epilogue stores to global memory directly.
+// - Halo rows: for one row slab of an image whose slabs lie on several ranks,
+//   x may hold one real row of the neighbouring slab above (top = 1) and below
+//   (bottom = 1) the H output rows. The slab and its tiles are then addressed
+//   in x's rows shifted by `top`; halo rows are image pixels, so the prologue
+//   applies to them, and only rows past them are the image's zero padding. The
+//   tile grid, y, accum and the moment partials cover the H output rows alone,
+//   so for a slab that starts on a multiple of the tile height its partials are
+//   the whole image's partials of those tiles, with the same bits.
 // C and Co are multiples of 32 (the wrapper checks); ragged H and W are masked
 // here. Times against the bound and against cuDNN stand in PERF.md.
 
@@ -101,7 +109,7 @@ struct Cfg {
 };
 
 struct ConvArgs {
-  const __nv_bfloat16* x;      // (B, H, W, C)
+  const __nv_bfloat16* x;      // (B, Hx, W, C): H output rows and top + bottom halo rows
   const __nv_bfloat16* w;      // (9, Co, C): tap-major, then output channel
   const float* scale;          // (B, C) or null: prologue
   const float* bias;           // (B, C) or null
@@ -109,6 +117,7 @@ struct ConvArgs {
   __nv_bfloat16* y;            // (B, H, W, Co)
   float* part;                 // (B, tiles, 2, Co) or null: moment partials
   int B, H, W, C, Co, ntx, tiles, total, relu;
+  int Hx, top;                 // rows of x; halo rows above the first output row (0 or 1)
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -303,7 +312,8 @@ __device__ __forceinline__ Tile tile_of(const ConvArgs& a, int i, int nchunks) {
 
 // Issue the TMA copies of iteration i (tile, channel chunk) into its ring
 // stage, on the stage's mbarrier (one thread): the two 8-channel halves of
-// the (TH + 2) x 66 slab, whose out-of-image pixels TMA fills with zeros, and
+// the (TH + 2) x 66 slab (x's rows, shifted by the halo above the output),
+// whose pixels outside x TMA fills with zeros, and
 // the two halves of the chunk's 9 x N weights.
 template <int N, class K>
 __device__ __forceinline__ void issue_chunk(const ConvArgs& a, const CUtensorMap* tmx,
@@ -316,14 +326,14 @@ __device__ __forceinline__ void issue_chunk(const ConvArgs& a, const CUtensorMap
   mbar_expect_tx(bar, K::TX);
 #pragma unroll
   for (int kg = 0; kg < 2; ++kg) {
-    tma_load_4d(st + kg * K::KS, tmx, bar, c0 + 8 * kg, t.x0 - 1, t.y0 - 1, t.b);
+    tma_load_4d(st + kg * K::KS, tmx, bar, c0 + 8 * kg, t.x0 - 1, t.y0 - 1 + a.top, t.b);
     tma_load_3d(st + 2 * K::KS + kg * K::WK, tmw, bar, c0 + 8 * kg, t.n0, 0);
   }
 }
 
 // The prologue over the landed slab chunk of iteration i, in place. Each
 // thread touches one 8-channel half (v & 1 is fixed by the stride); pixels
-// outside the image stay 0.
+// outside x (the image's zero padding) stay 0, halo rows are x's and take it.
 template <int N, class K>
 __device__ __forceinline__ void prologue_pass(const ConvArgs& a, int i, int nchunks,
                                               unsigned char* smem) {
@@ -342,8 +352,8 @@ __device__ __forceinline__ void prologue_pass(const ConvArgs& a, int i, int nchu
   }
   for (int v = threadIdx.x; v < K::NPIX * 2; v += kThreads) {
     const int pix = v >> 1;
-    const int gy = t.y0 - 1 + pix / kSW, gx = t.x0 - 1 + pix % kSW;
-    if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) continue;  // stays 0
+    const int gy = t.y0 - 1 + a.top + pix / kSW, gx = t.x0 - 1 + pix % kSW;  // in x's rows
+    if (gy < 0 || gy >= a.Hx || gx < 0 || gx >= a.W) continue;  // stays 0
     uint4* p = reinterpret_cast<uint4*>(st + kg * K::KS + pix * 16);
     uint4 val = *p;
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
@@ -617,7 +627,7 @@ template <int N>
 int launch(ConvArgs args, cudaStream_t stream) {
   using K = Cfg<N>;
   CUtensorMap tmx, tmw;  // input slab and weights
-  const cuuint64_t xdims[4] = {(cuuint64_t)args.C, (cuuint64_t)args.W, (cuuint64_t)args.H,
+  const cuuint64_t xdims[4] = {(cuuint64_t)args.C, (cuuint64_t)args.W, (cuuint64_t)args.Hx,
                                (cuuint64_t)args.B};
   const cuuint32_t xbox[4] = {8, kSW, K::TH + 2, 1};
   const cuuint64_t wdims[3] = {(cuuint64_t)args.C, (cuuint64_t)args.Co, 9};
@@ -650,13 +660,14 @@ int launch(ConvArgs args, cudaStream_t stream) {
 
 }  // namespace
 
-// x: bf16 (B, H, W, C); w: bf16 (9, Co, C); scale, bias: f32 (B, C) or null;
-// accum: bf16 (B, H, W, Co) or null; y: bf16 (B, H, W, Co); part: f32
-// (B, tiles, 2, Co) or null, tiles = amt_conv3x3_tiles(H, W, Co). C and Co are
-// multiples of 32. Returns a cudaError_t code.
+// x: bf16 (B, top + H + bottom, W, C), top and bottom 0 or 1 halo rows of a
+// row slab; w: bf16 (9, Co, C); scale, bias: f32 (B, C) or null; accum: bf16
+// (B, H, W, Co) or null; y: bf16 (B, H, W, Co); part: f32 (B, tiles, 2, Co) or
+// null, tiles = amt_conv3x3_tiles(H, W, Co). C and Co are multiples of 32.
+// Returns a cudaError_t code.
 extern "C" int amt_conv3x3_fused(const void* x, const void* w, const void* scale, const void* bias,
                                  const void* accum, void* y, void* part, int B, int H, int W,
-                                 int C, int Co, int relu, void* stream) {
+                                 int C, int Co, int relu, int top, int bottom, void* stream) {
   ConvArgs args;
   args.x = static_cast<const __nv_bfloat16*>(x);
   args.w = static_cast<const __nv_bfloat16*>(w);
@@ -674,7 +685,10 @@ extern "C" int amt_conv3x3_fused(const void* x, const void* w, const void* scale
   args.tiles = args.ntx * ((H + tile_rows(Co) - 1) / tile_rows(Co));
   args.total = 0;
   args.relu = relu;
+  args.Hx = H + top + bottom;
+  args.top = top;
   if (C % 32 != 0 || Co % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (top < 0 || top > 1 || bottom < 0 || bottom > 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_block(Co)) {
     case 256: return launch<256>(args, s);

@@ -5,7 +5,10 @@
 // (B, H, W, C) it computes, per (b, c), the f32 sums of x and x^2 over H * W.
 //
 // Design: one pass over the activation with 16-byte loads. A CTA of 256 threads
-// takes a run of 4096 pixels of one image; C/8 neighbouring threads read one
+// takes a run of `run` pixels of one image (the wrapper passes whole rows: the
+// most rows, a power of two, that fit in 4096 pixels, so the runs of a row slab
+// that starts on a multiple of that many rows are the whole image's runs, and
+// 4096 pixels whenever W divides 4096); C/8 neighbouring threads read one
 // pixel's C channels (8 each), so a warp reads contiguous memory. Each thread
 // accumulates its 8 channels in registers, the CTA folds its threads together
 // in shared memory in a fixed order, and writes one partial per (b, chunk, c)
@@ -25,20 +28,19 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPixelsPerCta = 4096;
 constexpr int kVec = 8;
 
 __global__ void __launch_bounds__(kThreads) moments_kernel(const __nv_bfloat16* __restrict__ x,
                                                            float* __restrict__ part, long long N,
-                                                           int C, int chunks) {
+                                                           int C, int chunks, int run) {
   __shared__ float red[2][kThreads][kVec];
   const int lanes = C / kVec;          // threads per pixel
   const int rows = kThreads / lanes;   // pixels per step of the CTA
   const int cv = threadIdx.x % lanes;
   const int r0 = threadIdx.x / lanes;
   const int b = blockIdx.y;
-  const long long p0 = (long long)blockIdx.x * kPixelsPerCta;
-  const long long p1 = min(N, p0 + kPixelsPerCta);
+  const long long p0 = (long long)blockIdx.x * run;
+  const long long p1 = min(N, p0 + run);
 
   float s1[kVec], s2[kVec];
 #pragma unroll
@@ -73,17 +75,18 @@ __global__ void __launch_bounds__(kThreads) moments_kernel(const __nv_bfloat16* 
 }  // namespace
 
 // x: bf16 (B, H, W, C) with C a multiple of 8 and at most 2048; part: f32
-// (B, chunks, 2, C) with chunks = amt_lane_moments_chunks(H * W). Returns a
-// cudaError_t code.
-extern "C" int amt_lane_moments(const void* x, void* part, int B, long long N, int C,
+// (B, chunks, 2, C) with chunks = amt_lane_moments_chunks(H * W, run), one
+// partial per run of `run` > 0 pixels. Returns a cudaError_t code.
+extern "C" int amt_lane_moments(const void* x, void* part, int B, long long N, int C, int run,
                                 void* stream) {
-  const int chunks = (int)((N + kPixelsPerCta - 1) / kPixelsPerCta);
+  if (run <= 0) return (int)cudaErrorInvalidValue;
+  const int chunks = (int)((N + run - 1) / run);
   dim3 grid(chunks, B);
   moments_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(part), N, C, chunks);
+      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(part), N, C, chunks, run);
   return (int)cudaGetLastError();
 }
 
-extern "C" int amt_lane_moments_chunks(long long N) {
-  return (int)((N + kPixelsPerCta - 1) / kPixelsPerCta);
+extern "C" int amt_lane_moments_chunks(long long N, int run) {
+  return (int)((N + run - 1) / run);
 }

@@ -11,6 +11,15 @@ the per-channel sums of y and y^2 that the next GroupNorm needs, taken of the
 rounded output. Weights are laid out (3, 3, Co, C): tap, output channel,
 input channel, the layout the kernel stages in shared memory.
 
+The sums come as partials, one per output tile of the kernel's grid (64
+columns by `tile_rows(Co)` rows, in row-major order: `moment_tiles`), which
+the caller adds in one fixed order (`sum_partials`); the plain version
+computes the same partials, each in a fixed pairwise order. For one row
+slab of an image (`top` / `bottom`: x holds a halo row of the neighbouring
+slab above / below the output rows) that starts on a multiple of the tile
+height, the partials are the whole image's partials of those tiles, so the
+slabs' partials, concatenated, add up to the whole image's sums bit for bit.
+
 For CUDA tensors the wrapper launches the hand-written kernel of
 `csrc/conv3x3_fused.cu` (bfloat16 in and out, C and Co multiples of 32); for
 CPU tensors it runs the plain PyTorch version, which the tests and
@@ -36,8 +45,13 @@ __all__ = [
     "conv2d_f32",
     "gn_affine_params",
     "launch_counts",
+    "moment_tiles",
     "reset_launch_counts",
+    "sum_partials",
+    "tile_rows",
 ]
+
+TILE_COLS = 64  # output columns of one kernel tile (the M of one wgmma)
 
 # kernel launches; only a launch of the CUDA kernel counts
 launch_counts = {"conv3x3_fused": 0}
@@ -82,12 +96,59 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def conv2d_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def tile_rows(co: int) -> int:
+    """Output rows of one kernel tile for Co output channels: 512 / N for
+    the widest wgmma N (32..256) that divides Co (`tile_rows` of the .cu)."""
+    n = next((n for n in (256, 128, 64) if co % n == 0), 32)
+    return 512 // n
+
+
+def moment_tiles(h: int, w: int, co: int) -> int:
+    """Moment partials of one image of h x w output pixels: the kernel's
+    tiles, `amt_conv3x3_tiles`."""
+    return -(-w // TILE_COLS) * -(-h // tile_rows(co))
+
+
+def pairwise_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` by halving, the dimension zero padded to a power of
+    two: the same additions in the same order whatever the other dimensions
+    hold."""
+    n = t.shape[dim]
+    t = t.movedim(dim, -1)
+    t = F.pad(t, (0, (1 << max(0, (n - 1).bit_length())) - n)).movedim(-1, dim)
+    while t.shape[dim] > 1:
+        lo, hi = t.split(t.shape[dim] // 2, dim)
+        t = lo + hi
+    return t.squeeze(dim)
+
+
+def sum_partials(part: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n, 2, C) moment partials -> (sum, sum of squares), each (B, C),
+    added over n in one fixed order."""
+    sums = part.sum(1)
+    return sums[:, 0], sums[:, 1]
+
+
+def _tile_partials(y: torch.Tensor) -> torch.Tensor:
+    """(B, tiles, 2, Co) float32 sums of y and y^2 over each output tile of
+    the kernel's grid, each in a fixed pairwise order."""
+    b, h, w, co = y.shape
+    th = tile_rows(co)
+    nty, ntx = -(-h // th), -(-w // TILE_COLS)
+    f = F.pad(y.float(), (0, 0, 0, ntx * TILE_COLS - w, 0, nty * th - h))
+    f = f.reshape(b, nty, th, ntx, TILE_COLS, co)
+    out = [pairwise_sum(pairwise_sum(v, 4), 2) for v in (f, f * f)]
+    return torch.stack(out, 3).reshape(b, nty * ntx, 2, co)
+
+
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, top: int = 0, bottom: int = 0) -> torch.Tensor:
     """SAME 3x3 convolution of NHWC `x` with (3, 3, Co, C) weights in full
-    float32 (TF32 off); returns (B, H, W, Co) float32."""
+    float32 (TF32 off); returns (B, H, W, Co) float32. With `top` / `bottom`
+    x's first / last row is a halo row of a neighbouring row slab: the rows
+    of the output stop short of it (past x the rows are zero)."""
     with _no_tf32():
         y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.permute(2, 3, 0, 1).float(), padding=1)
-    return y.permute(0, 2, 3, 1).contiguous()
+    return y.permute(0, 2, 3, 1)[:, top : y.shape[2] - bottom].contiguous()
 
 
 def conv3x3_fused_plain(
@@ -97,11 +158,15 @@ def conv3x3_fused_plain(
     relu: bool = False,
     accum: torch.Tensor | None = None,
     emit_moments: bool = False,
+    top: int = 0,
+    bottom: int = 0,
+    partials: bool = False,
 ):
     """Plain PyTorch version of `conv3x3_fused`, with the kernel's rounding
-    points: the prologue in float32, rounded to x's dtype; the conv in
-    float32; `accum` added in float32; one rounding to x's dtype; moments
-    summed in float32 over the rounded output."""
+    points: the prologue in float32, rounded to x's dtype, on every row of x
+    (halo rows too); the conv in float32; `accum` added in float32; one
+    rounding to x's dtype; moments summed in float32 over the rounded
+    output, per tile of the kernel's grid."""
     a = x
     if prologue is not None:
         scale, bias = prologue
@@ -109,14 +174,14 @@ def conv3x3_fused_plain(
         if relu:
             f = torch.relu(f)
         a = f.to(x.dtype)
-    y = conv2d_f32(a, w)
+    y = conv2d_f32(a, w, top, bottom)
     if accum is not None:
         y = y + accum.float()
     y = y.to(x.dtype)
     if not emit_moments:
         return y
-    f = y.float()
-    return y, (f.sum((1, 2)), (f * f).sum((1, 2)))
+    part = _tile_partials(y)
+    return y, (part if partials else sum_partials(part))
 
 
 @functools.cache
@@ -125,7 +190,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_kernel_library("conv3x3_fused").lib
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_conv3x3_fused.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.amt_conv3x3_fused.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.amt_conv3x3_fused.restype = i
     lib.amt_conv3x3_tiles.argtypes = [i, i, i]
     lib.amt_conv3x3_tiles.restype = i
@@ -153,22 +218,30 @@ def conv3x3_fused(
     relu: bool = False,
     accum: torch.Tensor | None = None,
     emit_moments: bool = False,
+    top: int = 0,
+    bottom: int = 0,
+    partials: bool = False,
 ):
     """SAME 3x3 conv with fused affine(+ReLU) prologue, accumulate and
     GroupNorm moments.
 
     Args:
-        x: (B, H, W, C) activation (bfloat16 on the card).
+        x: (B, top + H + bottom, W, C) activation (bfloat16 on the card).
         w: (3, 3, Co, C) weights in x's dtype.
         prologue: optional (scale, bias), each (B, C) float32.
         relu: apply ReLU after the prologue.
         accum: optional (B, H, W, Co) tensor in x's dtype, added before
             the rounding of the output.
         emit_moments: also return the per-channel moments.
+        top, bottom: 0, or 1 when x's first / last row is a halo row of the
+            neighbouring row slab above / below (an image pixel, which the
+            prologue takes); the H output rows lie between them.
+        partials: return the moments as (B, moment_tiles(H, W, Co), 2, Co)
+            per-tile partials instead of their sums.
 
     Returns:
         y (B, H, W, Co) in x's dtype, or (y, (s1, s2)) with (B, Co) float32
-        sums of y and y^2 when `emit_moments`.
+        sums of y and y^2 when `emit_moments` (or (y, partials)).
     """
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[3] != x.shape[3]:
         raise ValueError(
@@ -177,18 +250,21 @@ def conv3x3_fused(
         )
     if relu and prologue is None:
         raise ValueError("relu applies to the prologue; pass a prologue")
+    if top not in (0, 1) or bottom not in (0, 1) or x.shape[1] < top + bottom:
+        raise ValueError(f"top and bottom are 0 or 1 halo rows of x, got {top} and {bottom}")
     if x.device.type == "cpu":
-        return conv3x3_fused_plain(x, w, prologue, relu, accum, emit_moments)
+        return conv3x3_fused_plain(x, w, prologue, relu, accum, emit_moments, top, bottom, partials)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    b, h, wd, c = x.shape
+    b, hx, wd, c = x.shape
+    h = hx - top - bottom
     co = w.shape[2]
     dev, bf = x.device, torch.bfloat16
     if c % 32 or co % 32:
         raise ValueError(f"the CUDA kernel takes C and Co multiples of 32, got {c} and {co}")
     if b > 65535:
         raise ValueError(f"batch of {b} images exceeds the kernel grid")
-    _check_cuda_operand("x", x, (b, h, wd, c), bf, dev)
+    _check_cuda_operand("x", x, (b, hx, wd, c), bf, dev)
     _check_cuda_operand("w", w, (3, 3, co, c), bf, dev)
     scale = bias = None
     if prologue is not None:
@@ -201,15 +277,14 @@ def conv3x3_fused(
     y = torch.empty((b, h, wd, co), dtype=bf, device=dev)
     tiles = lib.amt_conv3x3_tiles(h, wd, co)
     part = torch.empty((b, tiles, 2, co), dtype=torch.float32, device=dev) if emit_moments else None
-    if x.numel():
+    if y.numel():
         with torch.cuda.device(dev):
             err = lib.amt_conv3x3_fused(
                 _ptr(x), _ptr(w), _ptr(scale), _ptr(bias), _ptr(accum), _ptr(y), _ptr(part),
-                b, h, wd, c, co, int(relu), cuda_stream(x),
+                b, h, wd, c, co, int(relu), top, bottom, cuda_stream(x),
             )
         check_launch(err, "conv3x3_fused")
         launch_counts["conv3x3_fused"] += 1
     if not emit_moments:
         return y
-    sums = part.sum(1) if tiles else torch.zeros((b, 2, co), dtype=torch.float32, device=dev)
-    return y, (sums[:, 0], sums[:, 1])
+    return y, (part if partials else sum_partials(part))

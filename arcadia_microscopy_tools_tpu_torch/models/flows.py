@@ -269,14 +269,19 @@ def _finish_masks(landing, active, flows, flow_threshold: float, max_cells: int,
     return labels
 
 
-def _successors(flows: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+def _successors(flows: torch.Tensor, active: torch.Tensor, row0: int = 0,
+                height: int | None = None) -> torch.Tensor:
     """(B, H * W) flat index of each pixel's one-step successor under the
-    rounded dynamics; inactive pixels are their own successors."""
+    rounded dynamics; inactive pixels are their own successors. For the rows
+    [row0, row0 + H) of an image of `height` rows the indices are the whole
+    image's."""
     b, h, w = active.shape
+    height = h if height is None else height
     yy, xx = _grid(h, w, active.device)
-    ny = torch.round(yy + flows[..., 0].float()).long().clamp(0, h - 1)
+    yy = yy + row0  # exact: row indices are small integers
+    ny = torch.round(yy + flows[..., 0].float()).long().clamp(0, height - 1)
     nx = torch.round(xx + flows[..., 1].float()).long().clamp(0, w - 1)
-    own = torch.arange(h * w, device=active.device).reshape(h, w)
+    own = torch.arange(row0 * w, (row0 + h) * w, device=active.device).reshape(h, w)
     return torch.where(active, ny * w + nx, own).reshape(b, h * w)
 
 
@@ -284,15 +289,20 @@ def _doubling_steps(niter: int) -> int:
     return max(1, math.ceil(math.log2(max(niter, 2))))
 
 
-def _segments_fit(act: torch.Tensor, cap: int) -> torch.Tensor:
+def _segments_fit(act: torch.Tensor, cap: int, n: int | None = None, reduce=None) -> torch.Tensor:
     """(B,) bool: the JAX package's two-stage compaction keeps every active
     8-pixel segment. It takes that route when n >= 2^20, cap <= n and 8 | n,
     and then keeps at most max(1, min(cap // 4, n // 8)) segments; a well
-    with more reports a capacity overflow, so the port reports the same."""
-    b, n = act.shape
+    with more reports a capacity overflow, so the port reports the same.
+    `act` may be a run of the image's n pixels that starts and ends on
+    segment edges, and `reduce` then sums the runs' segment counts."""
+    b, p = act.shape
+    n = p if n is None else n
     if not (n >= (1 << 20) and cap <= n and n % 8 == 0):
         return torch.ones(b, dtype=torch.bool, device=act.device)
-    segments = act.reshape(b, n // 8, 8).any(-1).sum(-1)
+    segments = act.reshape(b, p // 8, 8).any(-1).sum(-1)
+    if reduce is not None:
+        segments = reduce(segments, "sum")
     return segments <= max(1, min(cap // 4, n // 8))
 
 
@@ -322,15 +332,23 @@ def _follow_sparse_core(flows: torch.Tensor, active: torch.Tensor, niter: int, c
     ranks = torch.arange(1, cap + 1, device=dev).expand(b, cap).contiguous()
     idx = torch.searchsorted(count, ranks)  # n past the last active pixel
     valid = idx < n
-    idx_safe = torch.where(valid, idx, 0)
-    slot = torch.where(act & (count <= cap), count - 1, cap)
-    iota = torch.arange(cap, device=dev).expand(b, cap)
-    comp = torch.gather(slot, 1, torch.gather(nxt, 1, idx_safe))
-    # landing on a pixel outside the list (or a padding slot) is a fixpoint
-    comp = torch.where(valid & (comp < cap), comp, iota)
+    succ = torch.gather(nxt, 1, torch.where(valid, idx, 0))
+    return idx, valid, _land_listed(idx, valid, succ, niter), ok
+
+
+def _land_listed(idx, valid, succ, niter: int) -> torch.Tensor:
+    """(B, cap) landing index of each listed pixel after >= `niter` steps:
+    `idx` the listed active pixels in ascending order (n on padding slots),
+    `succ` each one's one-step successor. A successor outside the list (an
+    inactive pixel, or one past the cap) is a fixpoint; the doubling runs
+    all ceil(log2 niter) rounds."""
+    b, cap = idx.shape
+    iota = torch.arange(cap, device=idx.device).expand(b, cap)
+    pos = torch.searchsorted(idx, succ).clamp_max(cap - 1)  # the successor's slot, if listed
+    comp = torch.where(valid & (torch.gather(idx, 1, pos) == succ), pos, iota)
     for _ in range(_doubling_steps(niter)):
         comp = torch.gather(comp, 1, comp)
-    return idx, valid, torch.gather(idx_safe, 1, comp), ok
+    return torch.gather(torch.where(valid, idx, 0), 1, comp)
 
 
 def follow_flows_indices_sparse(
@@ -448,7 +466,7 @@ def _cluster_landings_compact(idx, valid, landing_compact, h: int, w: int, sink_
 
 
 def _flow_error_compact(idx, valid, lab_c, labels, predicted_flows, max_cells: int,
-                        n_iter: int = _QC_ITERS) -> torch.Tensor:
+                        n_iter: int = _QC_ITERS, pred_c=None) -> torch.Tensor:
     """`flow_error` with every per-label reduction on the listed pixels.
 
     Each label's centre is the pixel nearest its centroid, ties to the
@@ -456,7 +474,9 @@ def _flow_error_compact(idx, valid, lab_c, labels, predicted_flows, max_cells: i
     to float32 (the reference's are exact in float32 below 2^24). The
     diffusion and the gradient run on the full image, through the same
     `_diffuse_and_gradient` as the dense route. `labels` must be the
-    scatter of `lab_c` at `idx`. Returns (B, max_cells) float32."""
+    scatter of `lab_c` at `idx`. The predicted flows are the (B, H, W, 2)
+    `predicted_flows`, or with `pred_c` (B, cap, 2) the listed pixels' own
+    (`predicted_flows` is then not read). Returns (B, max_cells) float32."""
     b, h, w = labels.shape
     n = h * w
     nseg = max_cells + 1
@@ -481,7 +501,8 @@ def _flow_error_compact(idx, valid, lab_c, labels, predicted_flows, max_cells: i
 
     computed = _diffuse_and_gradient(labels.to(torch.int32).contiguous(), source, n_iter)
     pick = idx_safe[..., None].expand(b, idx.shape[1], 2)
-    pred_c = torch.gather(predicted_flows.float().reshape(b, n, 2), 1, pick)
+    if pred_c is None:
+        pred_c = torch.gather(predicted_flows.float().reshape(b, n, 2), 1, pick)
     comp_c = torch.gather(computed.reshape(b, n, 2), 1, pick)
     se = ((pred_c - comp_c) ** 2).sum(-1)
     sums2 = segment_sums(torch.stack([se, torch.ones_like(se)], 1), seg, nseg, fg)
@@ -507,11 +528,12 @@ def _renumber(keep: torch.Tensor, lab_c: torch.Tensor) -> torch.Tensor:
 def _finish_masks_compact(idx, valid, landing_compact, flows, h: int, w: int,
                           flow_threshold: float, max_cells: int, min_size: int,
                           sink_count: int = 3, sink_cap: int | None = None,
-                          clear_border_labels: bool = False):
+                          clear_border_labels: bool = False, pred_c=None):
     """Compact-domain tail: sink clustering, size filter and renumbering,
     flow-error QC and renumbering, and, with `clear_border_labels`, the
     removal (without renumbering, as `clear_border` does) of every label
-    that owns a border pixel.
+    that owns a border pixel. The QC reads `flows` (B, H, W, 2), or the
+    listed pixels' own `pred_c` (B, cap, 2) when given.
 
     Returns ((B, H, W) int32 labels, (B, cap) int32 label of each listed
     pixel, (B,) bool sink overflow)."""
@@ -528,7 +550,8 @@ def _finish_masks_compact(idx, valid, landing_compact, flows, h: int, w: int,
     labels = _scatter_labels(idx, valid, lab_c, h, w)
 
     if flow_threshold > 0:
-        bad = _flow_error_compact(idx, valid, lab_c, labels, flows, max_cells) > flow_threshold
+        err = _flow_error_compact(idx, valid, lab_c, labels, flows, max_cells, pred_c=pred_c)
+        bad = err > flow_threshold
         bad = F.pad(bad, (1, 0))  # label 0 is never bad
         # labels above max_cells share the last entry, as in the reference
         keep = ~torch.gather(bad, 1, ids.clamp_max(max_cells)) & (ids > 0)

@@ -7,6 +7,12 @@ CUDA tensors it launches the hand-written kernel of `csrc/gn_moments.cu`; for
 CPU tensors it runs the plain PyTorch version, which the tests and
 `chip_smoke.py` hold the kernel against. There is no fallback: a CUDA tensor
 launches the kernel or raises.
+
+Both return partial sums over runs of `lane_rows(W)` whole rows (the most
+rows, a power of two, within 4096 pixels; 4096 pixels whenever W divides
+4096), which one fixed-order sum adds up (`conv_cuda.sum_partials`): a row
+slab that starts on a multiple of the run gives the whole image's partials
+of those runs, bit for bit.
 """
 
 from __future__ import annotations
@@ -16,10 +22,15 @@ import functools
 
 import torch
 
+import torch.nn.functional as F
+
 from .._build import check_launch, cuda_stream
+from .conv_cuda import pairwise_sum, sum_partials
 
 __all__ = [
     "group_norm",
+    "lane_chunks",
+    "lane_rows",
     "lane_moments",
     "lane_moments_plain",
     "launch_counts",
@@ -35,10 +46,28 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def lane_moments_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `lane_moments`: float32 sums over (H, W)."""
-    f = x.float()
-    return f.sum((1, 2)), (f * f).sum((1, 2))
+_RUN_PIXELS = 4096  # the most pixels of one partial's run of rows
+
+
+def lane_rows(w: int) -> int:
+    """Rows of one partial's run in an image w pixels wide: the largest
+    power of two whose rows hold at most 4096 pixels, at least 1."""
+    return 1 << max(0, (_RUN_PIXELS // max(w, 1)).bit_length() - 1)
+
+
+def lane_chunks(h: int, w: int) -> int:
+    """Partials of one image of h x w pixels."""
+    return -(-h // lane_rows(w))
+
+
+def lane_moments_plain(x: torch.Tensor, partials: bool = False):
+    """Plain PyTorch version of `lane_moments`: float32 sums over each run
+    of lane_rows(W) rows, each in a fixed pairwise order."""
+    b, h, w, c = x.shape
+    r, k = lane_rows(w), lane_chunks(h, w)
+    f = F.pad(x.float(), (0, 0, 0, 0, 0, k * r - h)).reshape(b, k, r * w, c)
+    part = torch.stack([pairwise_sum(v, 2) for v in (f, f * f)], 2)
+    return part if partials else sum_partials(part)
 
 
 @functools.cache
@@ -47,16 +76,17 @@ def _library() -> ctypes.CDLL:
 
     lib = load_kernel_library("gn_moments").lib
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.amt_lane_moments.argtypes = [vp, vp, i, ll, i, vp]
+    lib.amt_lane_moments.argtypes = [vp, vp, i, ll, i, i, vp]
     lib.amt_lane_moments.restype = i
-    lib.amt_lane_moments_chunks.argtypes = [ll]
+    lib.amt_lane_moments_chunks.argtypes = [ll, i]
     lib.amt_lane_moments_chunks.restype = i
     return lib
 
 
-def lane_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def lane_moments(x: torch.Tensor, partials: bool = False):
     """Per-channel (sum, sum of squares) over the spatial axes of an NHWC
-    tensor: (B, H, W, C) -> two (B, C) float32 tensors.
+    tensor: (B, H, W, C) -> two (B, C) float32 tensors, or with `partials`
+    the (B, lane_chunks(H, W), 2, C) partial sums they add up from.
 
     On the card `x` must be contiguous bfloat16 with C a multiple of 8 and
     at most 2048; on the CPU any float dtype runs the plain version.
@@ -64,7 +94,7 @@ def lane_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if x.dim() != 4:
         raise ValueError(f"expected (B, H, W, C), got shape {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return lane_moments_plain(x)
+        return lane_moments_plain(x, partials)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, h, w, c = x.shape
@@ -75,18 +105,17 @@ def lane_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if b > 65535:
         raise ValueError(f"batch of {b} images exceeds the kernel grid")
     lib = _library()
-    n = h * w
-    part = torch.empty((b, lib.amt_lane_moments_chunks(n), 2, c), dtype=torch.float32,
-                       device=x.device)
-    if x.numel() == 0:
-        zeros = torch.zeros((b, c), dtype=torch.float32, device=x.device)
-        return zeros, zeros.clone()
-    with torch.cuda.device(x.device):
-        err = lib.amt_lane_moments(x.data_ptr(), part.data_ptr(), b, n, c, cuda_stream(x))
-    check_launch(err, "lane_moments")
-    launch_counts["lane_moments"] += 1
-    sums = part.sum(1)  # fixed-order reduction over the CTA partials
-    return sums[:, 0], sums[:, 1]
+    n, run = h * w, lane_rows(w) * w
+    part = torch.zeros((b, lane_chunks(h, w), 2, c), dtype=torch.float32, device=x.device)
+    if x.numel():
+        if lib.amt_lane_moments_chunks(n, run) != part.shape[1]:
+            raise RuntimeError("the moments kernel's partials differ from lane_chunks")
+        with torch.cuda.device(x.device):
+            err = lib.amt_lane_moments(x.data_ptr(), part.data_ptr(), b, n, c, run,
+                                       cuda_stream(x))
+        check_launch(err, "lane_moments")
+        launch_counts["lane_moments"] += 1
+    return part if partials else sum_partials(part)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int):

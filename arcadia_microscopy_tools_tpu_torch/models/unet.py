@@ -22,7 +22,14 @@ from the fused blocks of the JAX package's `unet_s2d.py`:
   `F.conv2d` rounded to the compute dtype, and its GN moments come from the
   `lane_moments` kernel;
 - 1x1 projections, the head, max-pool, upsample and the style MLP are
-  ordinary PyTorch.
+  ordinary PyTorch; the two narrow ones (down0's 3-channel projection, the
+  3-channel head) run as full-float32 GEMMs (`_narrow_project`), since
+  cuBLAS's bf16 GEMM at those shapes rounds a row differently as the
+  number of rows changes;
+- the style vector is the mean of the deepest features from per-block sums
+  (`_style_sums`: blocks of 2 rows, each added in a fixed pairwise order,
+  then the blocks in one fixed-order sum), so row slabs send their blocks'
+  sums rather than their features.
 
 GroupNorm is one-pass (E[x^2] - mean^2, clamped at 0) in every dtype; the
 JAX package's float32 path is two-pass, so the float32 forward agrees with
@@ -31,6 +38,16 @@ bfloat16 forward is the one the CUDA kernels run. A float32 forward runs
 the same blocks through the kernels' plain PyTorch versions on any device,
 as the JAX package runs its float32 forward in XLA, outside its bfloat16
 Pallas conv.
+
+`forward(x, slab=...)` runs one row slab of the input on each rank of a
+process group (the plate runner's space axis): before each 3x3 conv the
+slabs trade one halo row of its input (the conv kernel takes it and pads
+zeros only at the image's edges), each GroupNorm adds every slab's moment
+partials in the whole image's order, and the style vector is the mean of
+the deepest features' block sums (`_style_sums`); max-pool, upsample, the 1x1
+projections and the head stay local. For slabs that start on multiples of
+16 rows and of the moments kernel's run of rows (`gn_cuda.lane_rows`), the
+concatenated slab outputs equal the whole-image forward bit for bit.
 
 `training_forward` is the differentiable forward the trainer
 (models/train.py) runs: the JAX package's `_apply` with its default
@@ -45,15 +62,25 @@ the layout the conv kernel stages; 1x1 convs and dense layers (C, Co).
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv_cuda import conv2d_f32, conv3x3_fused, conv3x3_fused_plain, gn_affine_params
-from .gn_cuda import lane_moments, lane_moments_plain
+from ..parallel.collectives import all_gather_rows, halo_rows_nhwc
+from .conv_cuda import (
+    conv2d_f32,
+    conv3x3_fused,
+    conv3x3_fused_plain,
+    gn_affine_params,
+    moment_tiles,
+    pairwise_sum,
+    sum_partials,
+)
+from .gn_cuda import lane_chunks, lane_moments, lane_moments_plain
 
-__all__ = ["UNet", "UNetConfig"]
+__all__ = ["SlabRows", "UNet", "UNetConfig"]
 
 
 class UNetConfig:
@@ -89,6 +116,48 @@ class UNetConfig:
         )
 
 
+class SlabRows(NamedTuple):
+    """This rank's input is one row slab of an image whose slabs lie, in
+    order, on the ranks of `group`; slab r holds heights[r] input rows."""
+
+    group: Any
+    heights: tuple[int, ...]
+
+
+class _Rows:
+    """What one forward exchanges between row slabs: nothing for a whole
+    image (slab None), else halo rows, moment partials and the style's
+    block sums over the slab's group. `level` is the resolution level (rows
+    halve per level)."""
+
+    def __init__(self, slab: SlabRows | None, h: int):
+        self.group = None if slab is None else slab.group
+        self.heights = (h,) if slab is None else tuple(slab.heights)
+
+    def full(self, level: int) -> int:
+        """The whole image's rows at `level`."""
+        return sum(self.heights) >> level
+
+    def halo(self, t: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+        return halo_rows_nhwc(t, self.group)
+
+    def sums(self, part: torch.Tensor, level: int, count) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every slab's (B, count(rows), 2, C) partials, in the whole
+        image's order, added up."""
+        if self.group is not None:
+            part = all_gather_rows(part, [count(h >> level) for h in self.heights], self.group)
+        return sum_partials(part)
+
+    def style(self, h: torch.Tensor, level: int) -> torch.Tensor:
+        """(B, C) mean of the whole image's NHWC `h` at `level` from every
+        slab's block sums (`_style_sums`), added in the whole image's order."""
+        sums = _style_sums(h)
+        if self.group is not None:
+            counts = [-(-(r >> level) // _STYLE_ROWS) for r in self.heights]
+            sums = all_gather_rows(sums, counts, self.group)
+        return sums.sum(1) / (self.full(level) * h.shape[2])
+
+
 class _ConvBlock(nn.Module):
     """Parameters of one residual double-conv block."""
 
@@ -119,6 +188,42 @@ def _max_pool2_first(x: torch.Tensor) -> torch.Tensor:
     window in row-major order, as the gradient of XLA's `reduce_window` max
     does (`amax` would split it between equal values)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def _narrow_project(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w for NHWC `a` and a (K, N) weight with K or N below 32, as a
+    full-float32 GEMM (TF32 off) rounded once to a's dtype: the products of
+    bfloat16 values are exact in float32, and the float32 GEMM adds each
+    pixel's K of them one after another whatever the number of rows (on the
+    H100 as `chip_smoke.py`'s phase 3 probes it). cuBLAS's bf16 GEMM at
+    these shapes changes its kernel, and a pixel's rounding with it, with
+    the number of rows (a row slab got other bits than the whole image on
+    the H100)."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        y = a.float() @ w.float()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    return y.to(a.dtype)
+
+
+_STYLE_ROWS = 2  # rows of the deepest features per style block: 16 input rows
+
+
+def _style_sums(h: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(H / 2), C) float32 sums of NHWC `h` over each block of 2
+    rows, each in a fixed pairwise order (`pairwise_sum`): the same
+    additions whatever rows lie around the block."""
+    b, h_, w, c = h.shape
+    k = -(-h_ // _STYLE_ROWS)
+    f = F.pad(h.float(), (0, 0, 0, 0, 0, k * _STYLE_ROWS - h_))
+    return pairwise_sum(f.reshape(b, k, _STYLE_ROWS * w, c), 2)
+
+
+def _project(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A 1x1 projection of NHWC `a` in a's dtype."""
+    return _narrow_project(a, w) if min(w.shape) < 32 else a @ w
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,21 +306,33 @@ class UNet(nn.Module):
             return conv3x3_fused(*args, **kwargs)
         return conv3x3_fused_plain(*args, **kwargs)
 
-    def _moments(self, x):
+    def _moment_partials(self, x):
         if self.config.compute_dtype == torch.bfloat16:
-            return lane_moments(x)
-        return lane_moments_plain(x)
+            return lane_moments(x, partials=True)
+        return lane_moments_plain(x, partials=True)
 
-    def _tail(self, blk: _ConvBlock, y1, m1, skip):
+    def _conv_rows(self, rows: _Rows, x, w, level: int, moments: bool = False, **kwargs):
+        """`_conv` of this slab's rows with the neighbours' halo rows; with
+        `moments`, (y, the whole image's moments)."""
+        xh, top, bottom = rows.halo(x)
+        out = self._conv(xh, w, top=top, bottom=bottom, emit_moments=moments, partials=moments,
+                         **kwargs)
+        if not moments:
+            return out
+        y, part = out
+        _, _, wd, co = y.shape
+        return y, rows.sums(part, level, lambda h: moment_tiles(h, wd, co))
+
+    def _tail(self, blk: _ConvBlock, y1, m1, skip, rows: _Rows, level: int):
         """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
         then GN2 affine + residual + ReLU (rounding points of the JAX
         package's `_fused_tail`)."""
         dt, groups = self.config.compute_dtype, self.config.groups
-        _, h, w, c = y1.shape
-        n = h * w * (c // min(groups, c))
+        _, _, w, c = y1.shape
+        n = rows.full(level) * w * (c // min(groups, c))
         sc1, bi1 = gn_affine_params(m1[0], m1[1], blk.gn1_scale, blk.gn1_bias, groups, n)
-        y2, m2 = self._conv(
-            y1, blk.conv2.to(dt), prologue=(sc1, bi1), relu=True, emit_moments=True
+        y2, m2 = self._conv_rows(
+            rows, y1, blk.conv2.to(dt), level, moments=True, prologue=(sc1, bi1), relu=True
         )
         sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
         f = y2.float()
@@ -262,8 +379,12 @@ class UNet(nn.Module):
         return out.float()
 
     @torch.no_grad()  # inference only: the kernels have no backward
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab: SlabRows | None = None) -> torch.Tensor:
+        """(B, H, W, in_channels) -> (B, H, W, 3) float32. With `slab`, x is
+        this rank's row slab of the input and the result its rows of the
+        whole image's output (every rank of the slab's group calls this)."""
         dt = self.config.compute_dtype
+        rows = _Rows(slab, x.shape[1])
 
         def w(t: torch.Tensor) -> torch.Tensor:
             return t.to(dt).contiguous()
@@ -273,34 +394,39 @@ class UNet(nn.Module):
         h = x.to(dt)
         for i, blk in enumerate(self.down):
             if i == 0:
-                y1 = conv2d_f32(h, w(blk.conv1)).to(dt)
-                m1 = self._moments(y1)
+                hx, top, bottom = rows.halo(h)
+                y1 = conv2d_f32(hx, w(blk.conv1), top, bottom).to(dt)
+                del hx
+                wd = y1.shape[2]
+                m1 = rows.sums(self._moment_partials(y1), 0, lambda r: lane_chunks(r, wd))
             else:
-                y1, m1 = self._conv(h, w(blk.conv1), emit_moments=True)
-            skip = h if blk.proj is None else h @ w(blk.proj)
-            h = self._tail(blk, y1, m1, skip)
+                y1, m1 = self._conv_rows(rows, h, w(blk.conv1), i, moments=True)
+            skip = h if blk.proj is None else _project(h, w(blk.proj))
+            h = self._tail(blk, y1, m1, skip, rows, i)
             del y1, skip
             skips.append(h)
             if i < len(self.down) - 1:
                 h = _max_pool2(h)
 
         # style vector from the deepest features
-        style = h.float().mean((1, 2))
+        style = rows.style(h, len(self.down) - 1)
         style = style / (torch.linalg.vector_norm(style, dim=-1, keepdim=True) + 1e-6)
         style = torch.relu(style @ self.style_dense)
 
         # decoder: conv(concat(up, skip)) as conv(up) accumulated into conv(skip)
         n_levels = len(self.down)
         for i, blk in enumerate(self.up):
-            skip_t = skips[n_levels - 2 - i]
+            level = n_levels - 2 - i
+            skip_t = skips[level]
             c_up = h.shape[-1]
             up = _upsample2(h)
-            a = self._conv(up, w(blk.conv1[..., :c_up]))
+            a = self._conv_rows(rows, up, w(blk.conv1[..., :c_up]), level)
             del up
-            y1, m1 = self._conv(skip_t, w(blk.conv1[..., c_up:]), accum=a, emit_moments=True)
+            y1, m1 = self._conv_rows(rows, skip_t, w(blk.conv1[..., c_up:]), level, moments=True,
+                                     accum=a)
             del a
             skip = _upsample2(h @ w(blk.proj[:c_up])) + skip_t @ w(blk.proj[c_up:])
-            h = self._tail(blk, y1, m1, skip)
+            h = self._tail(blk, y1, m1, skip, rows, level)
             del y1, skip
             h += (style @ self.style_proj[i]).to(dt)[:, None, None, :]
-        return (h @ w(self.head)).float() + self.head_bias
+        return _project(h, w(self.head)).float() + self.head_bias

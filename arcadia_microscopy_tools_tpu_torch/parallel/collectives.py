@@ -22,13 +22,17 @@ import itertools
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..ops.filters import _pad_last2, gaussian_radius, gaussian_valid
 from ..ops.stats import histogram_int
 from ..ops.threshold import otsu_from_hist
 
 __all__ = [
+    "all_gather_rows",
     "halo_exchange",
+    "halo_rows_nhwc",
+    "make_sharded_otsu",
     "sharded_histogram_uint16",
     "sharded_otsu_threshold",
     "sharded_gaussian_filter",
@@ -107,6 +111,34 @@ def halo_rows(x: torch.Tensor, halo: int, group, fill=None) -> torch.Tensor:
     return torch.cat([rows[..., :halo, :], x, rows[..., halo:, :]], -2)
 
 
+def all_gather_rows(t: torch.Tensor, sizes, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's `t` concatenated along `dim` in group order, where rank
+    r's `t` holds sizes[r] entries along `dim` (the other dimensions equal):
+    the rows of a row-sharded tensor, or its per-slab partial sums."""
+    if group is None:
+        return t
+    most = max(sizes)
+    pad = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, most - t.shape[dim]]
+    parts = all_gather(F.pad(t, pad), group)
+    return torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)], dim)
+
+
+def halo_rows_nhwc(x: torch.Tensor, group) -> tuple[torch.Tensor, int, int]:
+    """`x` (B, H_local, W, C), one row slab of an NHWC image whose slabs lie
+    on the ranks of `group` in order, with the neighbouring slabs' rows
+    next to it: (padded, top, bottom), where top / bottom is 1 when a row
+    was added above / below and 0 at the image's edge (where a SAME
+    convolution pads zeros itself). One all-gather of each slab's first and
+    last rows."""
+    me, n = group_rank_size(group)
+    if n == 1:
+        return x, 0, 0
+    ends = all_gather(torch.stack([x[:, 0], x[:, -1]], 1), group)  # (S, B, 2, W, C)
+    top, bottom = int(me > 0), int(me < n - 1)
+    rows = ([ends[me - 1][:, 1:]] if top else []) + [x] + ([ends[me + 1][:, :1]] if bottom else [])
+    return torch.cat(rows, 1), top, bottom
+
+
 def halo_exchange(x: torch.Tensor, halo: int, group) -> torch.Tensor:
     """Pad a Y-sharded block with `halo` rows from its neighbours.
 
@@ -131,6 +163,18 @@ def sharded_otsu_threshold(x_local: torch.Tensor, group) -> torch.Tensor:
     counts = sharded_histogram_uint16(x_local, group)
     centers = torch.arange(65536, dtype=torch.float32, device=x_local.device)
     return otsu_from_hist(counts, centers)
+
+
+def make_sharded_otsu(mesh, axis_name: str = "space"):
+    """Global Otsu over a mesh axis (convenience wrapper): a function of
+    this rank's block of image rows that returns the whole image's
+    threshold, the same on every rank of the axis."""
+    group = mesh.group(axis_name)
+
+    def run(x_local: torch.Tensor) -> torch.Tensor:
+        return sharded_otsu_threshold(x_local, group)
+
+    return run
 
 
 def sharded_gaussian_filter(

@@ -40,6 +40,7 @@ __all__ = [
     "well_sharding",
     "plate_sharding_multihost",
     "replicated",
+    "row_bounds",
 ]
 
 WELL_AXIS = "wells"
@@ -155,6 +156,20 @@ def create_multihost_mesh(n_hosts: int, config: MeshConfig | None = None) -> Mes
     return Mesh(grid, (HOST_AXIS, WELL_AXIS, SPACE_AXIS))
 
 
+def row_bounds(h: int, count: int, align: int = 1) -> tuple[int, ...]:
+    """The row slabs of an image of `h` rows on `count` ranks, as
+    (0, start of slab 1, ..., h): blocks of ceil(h / count) rows rounded up
+    to a multiple of `align`, the last one shorter when h is not a multiple
+    (a ragged last shard). Raises ValueError when a slab would hold no row."""
+    per = -(-math.ceil(h / count) // align) * align
+    if (count - 1) * per >= h:
+        raise ValueError(
+            f"space_parallelism={count} leaves a shard of an image of {h} rows without rows"
+            + (f" (slabs start on multiples of {align} rows)" if align > 1 else "")
+        )
+    return (*range(0, count * per, per), h)
+
+
 @dataclass(frozen=True)
 class Shard:
     """What one rank owns of a (B, C, H, W) well batch: block `batch_index`
@@ -174,18 +189,10 @@ class Shard:
         return slice(lo, min(b, lo + per))
 
     def image_rows(self, h: int) -> slice:
-        """This rank's rows of an image of `h` rows: blocks of
-        ceil(h / space_count), the last one shorter when h is not a
-        multiple (a ragged last shard). Raises ValueError when a shard would
-        hold no row."""
-        per = math.ceil(h / self.space_count)
-        if (self.space_count - 1) * per >= h:
-            raise ValueError(
-                f"space_parallelism={self.space_count} leaves a shard of an image of {h} rows "
-                "without rows"
-            )
-        lo = self.space_index * per
-        return slice(lo, min(h, lo + per))
+        """This rank's rows of an image of `h` rows: its slab of
+        `row_bounds(h, space_count)`."""
+        bounds = row_bounds(h, self.space_count)
+        return slice(bounds[self.space_index], bounds[self.space_index + 1])
 
 
 def _batch_shard(mesh: Mesh, axes: tuple[str, ...], spatial: bool) -> Shard:

@@ -15,12 +15,16 @@ methods make the mask:
 On a mesh (`parallel.mesh`; one rank per device, `torch.distributed`), each
 rank decodes, stages and runs only its block of every batch, and the packed
 per-cell columns and health scalars are all-gathered, so every rank builds
-the same `PlateResults`. With space_parallelism > 1 the classical program
-runs on row slabs of each well: the JAX package leaves those collectives to
-XLA's partitioner and turns its Pallas kernels off there; here the cross-
-shard steps are written out (`_classical_rows`) and the CUDA CC kernels run
-on every slab. Its packed columns and health equal the single device's bit
-for bit.
+the same `PlateResults`. With space_parallelism > 1 both methods run on row
+slabs of each well: the JAX package leaves those collectives to XLA's
+partitioner and turns its Pallas kernels off there; here the cross-shard
+steps are written out and the CUDA kernels run on every slab. The classical
+program (`_classical_rows`) runs the fused frontend on its slab, or gathers
+the segmentation channel and runs the staged mask whole on every rank of
+the space group; the U-Net program (`_unet_rows`) runs the forward on its
+slab (halo rows, gathered GroupNorm partials), lists its active pixels, and
+runs the compact mask tail whole on every rank. Packed columns and health
+equal the single device's bit for bit.
 
 The runner keeps the reference's host-side contract:
 - per-well failure isolation: a failed well yields None and a
@@ -78,6 +82,7 @@ from ..ops.morphology import binary_opening, disk
 from ..ops.regionprops import measure_compacted, measure_segments, perimeter_classes
 from ..ops.threshold import GLOBAL_METHODS
 from .collectives import all_gather, all_reduce, group_rank_size, halo_rows
+from .collectives import all_gather_rows
 from .mesh import (
     HOST_AXIS,
     SPACE_AXIS,
@@ -86,6 +91,7 @@ from .mesh import (
     Shard,
     create_mesh,
     plate_sharding_multihost,
+    row_bounds,
     well_sharding,
 )
 
@@ -286,16 +292,19 @@ def unet_network(unet_params=None, device: str | torch.device | None = None):
     return net.to(device).eval()
 
 
-def _normalised(seg: torch.Tensor) -> torch.Tensor:
+def _normalised(seg: torch.Tensor, group=None, n: int | None = None) -> torch.Tensor:
     """(B, H, W) uint16-valued float32 frames stretched to [0, 1] between
     each frame's 1st and 99th percentiles, read from its exact integer
-    histogram (np.percentile's values), clipped in float32."""
+    histogram (np.percentile's values), clipped in float32. For row slabs
+    of frames of n pixels the slabs of `group` add up their counts."""
     b, h, w = seg.shape
+    n = h * w if n is None else n
     values = seg.reshape(b, h * w).long() + 65536 * torch.arange(b, device=seg.device)[:, None]
     counts = torch.bincount(values.reshape(-1), minlength=65536 * b).reshape(b, 65536)
+    counts = all_reduce(counts, "sum", group)
     cum = torch.cumsum(counts, -1).to(torch.float32)  # exact below 2^24 pixels
-    p1 = _percentile_from_cum(cum, 1.0, h * w)[:, None, None]
-    p99 = _percentile_from_cum(cum, 99.0, h * w)[:, None, None]
+    p1 = _percentile_from_cum(cum, 1.0, n)[:, None, None]
+    p99 = _percentile_from_cum(cum, 99.0, n)[:, None, None]
     return ((seg - p1) / torch.clamp(p99 - p1, min=1e-6)).clamp(0.0, 1.0)
 
 
@@ -340,35 +349,39 @@ def measure_unet_masks(labels, lab_c, idx, valid, stack: torch.Tensor, max_cells
     return measure_compacted(key // (n + 1), idx_s, roots, stack, max_cells, w)
 
 
-# the ROADMAP queue item that ports what a spatially sharded mesh cannot run yet
-_SPATIAL_NEXT = "ROADMAP.md queue 1, item 1: the spatially sharded U-Net"
-
-
 @dataclass(frozen=True)
 class RowSlab:
-    """This rank's rows [row0, row0 + H_local) of wells of `height` rows;
-    the other slabs of each well lie, in row order, on the ranks of
-    `group` (the mesh's space group)."""
+    """Slab `index` of the row slabs `bounds` = (0, ..., height) of wells
+    (`mesh.row_bounds`), this rank's; the slabs lie, in order, on the ranks
+    of `group` (the mesh's space group)."""
 
     group: Any
-    row0: int
-    height: int
+    index: int
+    bounds: tuple[int, ...]
+
+    @property
+    def row0(self) -> int:
+        return self.bounds[self.index]
+
+    @property
+    def height(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def heights(self) -> list[int]:
+        return [b - a for a, b in zip(self.bounds, self.bounds[1:])]
 
 
-def _check_spatial(config: PlateRunConfig) -> None:
-    """Raise for the configurations the row-sharded program does not run."""
-    if config.method == "unet":
-        raise NotImplementedError(
-            "method='unet' with space_parallelism > 1: the U-Net's GroupNorm statistics and "
-            f"the flow tracking cross row shards ({_SPATIAL_NEXT}); shard the wells instead"
-        )
-    if config.threshold_method not in HIST_THRESHOLD_METHODS or config.opening_radius > 0:
-        raise NotImplementedError(
-            "space_parallelism > 1 runs the fused histogram frontend "
-            f"({', '.join(HIST_THRESHOLD_METHODS)}, opening_radius=0); "
-            f"got threshold_method={config.threshold_method!r}, "
-            f"opening_radius={config.opening_radius}"
-        )
+def unet_row_align(w: int) -> int:
+    """The rows U-Net row slabs of wells `w` columns wide start on a
+    multiple of: 16, so that max-pooling pairs rows alike and every conv
+    call's tiles (16 full-resolution rows at each level) are a run of the
+    whole image's; and the rows of one partial of the moments kernel at the
+    forward's padded width (a power of two; more than 16 only below 256
+    columns)."""
+    from ..models.gn_cuda import lane_rows
+
+    return max(16, lane_rows(w + (-w) % 8))
 
 
 def _row_slab_dog(seg: torch.Tensor, config: PlateRunConfig, slab: RowSlab) -> torch.Tensor:
@@ -461,33 +474,50 @@ def _within_capacity(comp, fg, num, cap: int, group) -> torch.Tensor:
     return fg & (pos < cap)
 
 
-def _classical_rows(img: torch.Tensor, stack: torch.Tensor, config: PlateRunConfig, slab: RowSlab):
-    """The classical well program on this rank's row slab of each well.
-
-    (a) the DoG on a halo-padded slab (`_row_slab_dog`); (b) one local
-    65536-bin histogram per slab, all-reduced, then the percentile and
-    threshold decisions from the whole well's counts; (c) `component_roots`
-    on the slab through the CUDA CC kernels, roots turned into the well's
-    linear indices; (d) the cross-slab merge (`_merge_row_slabs`); (e) the
-    certificate ANDed over slabs, the component count and the foreground
-    overflow of the whole well, and cell slots in root order; (f) the exact
-    partial sums of `measure_segments`, reduced over slabs, with the
-    perimeter read on two halo rows of merged roots. Returns what the
-    single-device program returns, with the same bits on every slab."""
-    group, row0, height = slab.group, slab.row0, slab.height
-    seg = to_float(img[:, config.seg_channel_index])
-    b, hs, w = seg.shape
-    n = height * w
-    dev = seg.device
-
+def _fused_rows_mask(seg: torch.Tensor, config: PlateRunConfig, slab: RowSlab) -> torch.Tensor:
+    """The fused frontend's mask on this slab: the DoG on a halo-padded
+    slab (`_row_slab_dog`), one local 65536-bin histogram per slab,
+    all-reduced, then the percentile and threshold decisions from the whole
+    well's counts."""
+    group = slab.group
     dog = _row_slab_dog(seg, config, slab)
     flat = dog.flatten(1)
     mn = all_reduce(flat.amin(1), "min", group)
     mx = all_reduce(flat.amax(1), "max", group)
     q0 = quantize(dog, mn, mx)
     counts = all_reduce(q0_histograms(q0), "sum", group)
-    c0 = cutoff_from_hist(counts, n, mn, mx, (0.5, 99.9), config.threshold_method)
-    mask = q0 > c0[:, None, None]
+    c0 = cutoff_from_hist(counts, slab.height * seg.shape[-1], mn, mx, (0.5, 99.9),
+                          config.threshold_method)
+    return q0 > c0[:, None, None]
+
+
+def _classical_rows(img: torch.Tensor, stack: torch.Tensor, config: PlateRunConfig, slab: RowSlab):
+    """The classical well program on this rank's row slab of each well.
+
+    (a) the mask: the fused frontend on the slab (`_fused_rows_mask`), or,
+    for the configurations it does not cover, the segmentation channel's
+    rows of every slab gathered and `_staged_mask` run on the whole well on
+    every rank of the space group, of which the slab keeps its rows; (b)
+    `component_roots` on the slab through the CUDA CC kernels, roots turned
+    into the well's linear indices; (c) the cross-slab merge
+    (`_merge_row_slabs`); (d) the certificate ANDed over slabs, the
+    component count and the foreground overflow of the whole well, and cell
+    slots in root order; (e) the exact partial sums of `measure_segments`,
+    reduced over slabs, with the perimeter read on two halo rows of merged
+    roots. Returns what the single-device program returns, with the same
+    bits on every slab."""
+    group, row0, height = slab.group, slab.row0, slab.height
+    seg = to_float(img[:, config.seg_channel_index])
+    b, hs, w = seg.shape
+    n = height * w
+    dev = seg.device
+
+    if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
+        mask = _fused_rows_mask(seg, config, slab)
+    else:  # repeated on every rank of the space group: the thresholds take the whole well
+        whole = all_gather_rows(seg, slab.heights, group)
+        mask = torch.stack([_staged_mask(frame, config) for frame in whole])[:, row0 : row0 + hs]
+        del whole
 
     local, converged = component_roots(mask, pair_cap=config.pair_cap)
     roots = torch.where(mask, local.long() + row0 * w, n)
@@ -530,6 +560,114 @@ def _classical_rows(img: torch.Tensor, stack: torch.Tensor, config: PlateRunConf
     return props, stats, (num, overflow, converged), None
 
 
+def _listed_rows(flows: torch.Tensor, active: torch.Tensor, cap: int, slab: RowSlab):
+    """The compact tail's list of the whole well from this rank's rows:
+    each slab lists its active pixels in ascending order with their one-step
+    successors and flows, an exclusive scan of the slabs' counts gives each
+    pixel its slot, and every slab's list is gathered. Returns (idx, valid,
+    successors, listed flows, ok), each (B, cap) ((B, cap, 2) flows): what
+    `models.flows._follow_sparse_core` lists for the whole well, the same on
+    every rank."""
+    from ..models.flows import _segments_fit, _successors
+
+    group, row0, height = slab.group, slab.row0, slab.height
+    b, hs, w = active.shape
+    n, p = height * w, hs * w
+    dev = active.device
+    nxt = _successors(flows, active, row0, height)
+    act = active.reshape(b, p)
+    counts = all_gather(act.sum(1), group)  # (S, B) active pixels per slab
+    before = torch.cumsum(counts, 0) - counts
+    take = torch.minimum(counts, (cap - before).clamp_min(0))  # what each slab lists
+    most = max(1, int(take.max()))
+    ranks = torch.arange(1, most + 1, device=dev).expand(b, most).contiguous()
+    at = torch.searchsorted(torch.cumsum(act, 1), ranks).clamp_max(p - 1)
+    mine = ranks <= take[slab.index][:, None]
+    lists = [
+        all_gather(t, group).transpose(0, 1).reshape(b, -1, *t.shape[2:])
+        for t in (
+            torch.where(mine, at + row0 * w, n),
+            torch.where(mine, torch.gather(nxt, 1, at), 0),
+            torch.where(mine[..., None], torch.gather(flows.float().reshape(b, p, 2), 1,
+                                                      at[..., None].expand(b, most, 2)), 0.0),
+        )
+    ]
+    listed = ranks[None] <= take[..., None]  # (S, B, most)
+    slot = torch.where(listed, before[..., None] + ranks[None] - 1, cap).transpose(0, 1).reshape(b, -1)
+
+    def place(vals: torch.Tensor, fill) -> torch.Tensor:
+        out = vals.new_full((b, cap + 1, *vals.shape[2:]), fill)
+        index = slot.reshape(*slot.shape, *[1] * (vals.dim() - 2)).expand_as(vals)
+        # unlisted entries land past the cap
+        return out.scatter_(1, index, vals)[:, :cap].contiguous()
+
+    idx, succ, pred_c = place(lists[0], n), place(lists[1], 0), place(lists[2], 0.0)
+    ok = (counts.sum(0) <= cap) & _segments_fit(
+        act, cap, n, reduce=lambda t, op: all_reduce(t, op, group))
+    return idx, idx < n, succ, pred_c, ok
+
+
+def _unet_rows(img: torch.Tensor, stack: torch.Tensor, config: PlateRunConfig, network,
+               slab: RowSlab):
+    """The U-Net well program on this rank's row slab of each well.
+
+    (a) the stretch from the all-reduced histograms; (b) the edge pad to the
+    U-Net's multiple of 8 (rows on the last slab only) and the forward on
+    the slab (`UNet.forward(slab=...)`); (c) the compact list of the whole
+    well (`_listed_rows`); (d) the doubling, the sink clustering, the size
+    filter, the QC (the diffusion kernel) and the border filter, whole on
+    every rank of the space group, on the inputs the single device has; (e)
+    the exact partial sums of `measure_segments` over the slab's pixels,
+    reduced over slabs, with the perimeter read on the whole label image.
+    Returns what the single-device program returns, with the same bits on
+    every slab."""
+    from ..models.flows import _finish_masks_compact, _land_listed
+    from ..models.unet import SlabRows
+
+    group, row0, height = slab.group, slab.row0, slab.height
+    seg = img[:, config.seg_channel_index].to(torch.float32)
+    b, hs, w = seg.shape
+    dev = seg.device
+    x = _normalised(seg, group, height * w)
+    heights = slab.heights
+    heights[-1] += (-height) % 8
+    ph = heights[slab.index] - hs
+    if ph or w % 8:
+        x = F.pad(x[:, None], (0, (-w) % 8, 0, ph), mode="replicate")[:, 0]
+    out = network(x[..., None].expand(-1, -1, -1, 3), SlabRows(group, tuple(heights)))
+    del x
+    out = out[:, :hs, :w]
+    flows = out[..., :2] * 0.2  # as compute_masks_sparse_compact takes them
+    active = out[..., 2] > config.cellprob_threshold
+    del out
+    idx, valid, succ, pred_c, ok = _listed_rows(flows, active, foreground_capacity(config, height, w),
+                                                slab)
+    del flows, active
+    labels, lab_c, sink_overflow = _finish_masks_compact(
+        idx, valid, _land_listed(idx, valid, succ, config.niter), None, height, w,
+        config.flow_threshold, config.max_cells, config.min_size,
+        clear_border_labels=config.remove_edge_cells, pred_c=pred_c,
+    )
+    ok = ok & ~sink_overflow
+
+    flat = labels[:, row0 : row0 + hs].reshape(b, -1).long()
+    pclass = perimeter_classes(F.pad(labels, (0, 0, 2, 2))[:, row0 : row0 + hs + 4])
+    ys = (torch.arange(hs, device=dev) + row0).repeat_interleave(w)
+    xs = torch.arange(w, device=dev).repeat(hs)
+    props, stats = measure_segments(
+        flat.clamp(0, config.max_cells),
+        flat > 0,
+        ys.expand(b, -1),
+        xs.expand(b, -1),
+        pclass[:, 2 : 2 + hs].reshape(b, -1),
+        stack.reshape(b, stack.shape[1], -1),
+        config.max_cells,
+        root=flat - 1,
+        reduce=lambda t, op: all_reduce(t, op, group),
+    )
+    return props, stats, (lab_c.amax(1), ~ok, torch.ones_like(ok)), labels
+
+
 def _build_well_program(
     config: PlateRunConfig,
     n_channels: int,
@@ -543,12 +681,10 @@ def _build_well_program(
     convergence certificate). The "unet" method needs `network`
     (`unet_network`); `debug_labels` (unet only) also returns its (B, H, W)
     label images. With a `slab` the program takes this rank's rows of each
-    well (classical method only) and returns the whole wells' results."""
+    well and returns the whole wells' results."""
     _check_supported(config)
     if debug_labels and config.method != "unet":
         raise ValueError("debug_labels is only supported for method='unet'")
-    if slab is not None:
-        _check_spatial(config)
     seg_idx = config.seg_channel_index
     measure_idx = (
         config.measure_channel_indices
@@ -578,6 +714,8 @@ def _build_well_program(
         return props, stats, health, None
 
     def unet(img: torch.Tensor, stack: torch.Tensor):
+        if slab is not None:
+            return _unet_rows(img, stack, config, network, slab)
         cm = _unet_masks(img[:, seg_idx].to(torch.float32), network, config)
         props, stats = measure_unet_masks(
             cm.labels, cm.lab_c, cm.idx, cm.valid, stack, config.max_cells
@@ -661,8 +799,6 @@ class PlateRunner:
         self.config = config or PlateRunConfig()
         _check_supported(self.config)
         self.mesh = mesh if mesh is not None else create_mesh(mesh_config)
-        if self.mesh.shape[SPACE_AXIS] > 1:
-            _check_spatial(self.config)
         self.device = resolve_device(device)
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
         self.network = (
@@ -723,14 +859,17 @@ class PlateRunner:
             return plate_sharding_multihost(self.mesh, spatial=spatial)
         return well_sharding(self.mesh, spatial=spatial)
 
-    def _slab(self, height: int) -> tuple[slice, RowSlab | None]:
-        """This rank's rows of wells of `height` rows and, on a spatial
-        mesh, the slab the well program takes."""
+    def _slab(self, height: int, width: int) -> tuple[slice, RowSlab | None]:
+        """This rank's rows of wells of `height` x `width` pixels and, on a
+        spatial mesh, the slab the well program takes (U-Net slabs start on
+        multiples of `unet_row_align(width)` rows)."""
         shard = self._input_sharding()
         if shard.space_count == 1:
             return slice(0, height), None
-        rows = shard.image_rows(height)
-        return rows, RowSlab(self.mesh.group(SPACE_AXIS), rows.start, height)
+        align = unet_row_align(width) if self.config.method == "unet" else 1
+        bounds = row_bounds(height, shard.space_count, align)
+        i = shard.space_index
+        return slice(bounds[i], bounds[i + 1]), RowSlab(self.mesh.group(SPACE_AXIS), i, bounds)
 
     def _get_compiled(
         self, n_channels: int, shape: tuple[int, int], config: PlateRunConfig | None = None
@@ -741,7 +880,7 @@ class PlateRunner:
         and gets every well's packed columns and health, all-gathered."""
         config = config or self.config
         shard = self._input_sharding()
-        rows, slab = self._slab(shape[0])
+        rows, slab = self._slab(*shape)
         program = _build_well_program(config, n_channels, self.network, slab=slab)
         n_measured = len(config.measure_channel_indices or range(n_channels))
         width = len(_PROP_COLUMNS) + len(_INTENSITY_STATS) * n_measured
@@ -941,7 +1080,7 @@ class PlateRunner:
             run the well program."""
             t0 = time.time()
             try:
-                rows, slab = self._slab(images[0].shape[-2])
+                rows, slab = self._slab(*images[0].shape[-2:])
                 batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
                 staged = torch.from_numpy(batch).to(self.device)
                 program = _build_well_program(config, staged.shape[1], self.network, slab=slab)

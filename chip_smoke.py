@@ -25,7 +25,13 @@ Phases, each printing its lines:
    tiling's edges (W not a multiple of the 64-pixel tile, H = 1, B = 1 with
    C = Co = 256, 256 -> 128), each with and without prologue and accum; two
    launches on the same inputs give the same bits of y and the moments; the
-   GroupNorm moments at 8 x 2048^2 x 32 and on ragged shapes, within 1e-5;
+   conv on row slabs: each of the 16 shapes split at half its rows as two
+   calls with one halo row each, y and moment partials concatenated equal to
+   the whole-image call bit for bit, and a halo slab against the plain
+   version within one bf16 step; the forward's calls outside the kernels
+   (the stem's F.conv2d, the 1x1 projections, the head) give a slab's rows
+   the whole image's bits; the GroupNorm moments at 8 x 2048^2 x 32 and on
+   ragged shapes, within 1e-5, and their slabs' partials bit for bit;
    the rank selection bit-exact (int32 views) on the 8 x 2048^2 timelapse
    stack at window 21, windows 11, 15 and 22 (two ranks in one launch), a
    window of 255 that reads its keys from device memory, a ragged batch of
@@ -110,16 +116,19 @@ Phases, each printing its lines:
 14. mesh - `measure_compacted` (uint16 and float32 channels),
    `measure_labels` and `measure_intensity_stack` run twice on well 0 give
    the same bits; two spawned ranks sharing the card over gloo run the
-   plate on a (wells=2) and a (space=2) mesh and the U-Net plate on
-   (wells=2), each as the sharded well program (packed columns and health
-   equal to phases 4 and 7's bit for bit) and as `PlateRunner.run` (tables
+   plate on a (wells=2) and a (space=2) mesh, the U-Net plate on (wells=2)
+   and (space=2), and the staged classical plate (li threshold, opening 2)
+   on (space=2), each as the sharded well program (packed columns and
+   health equal to the single process's - phases 4 and 7, and the staged
+   configuration's own run - bit for bit) and as `PlateRunner.run` (tables
    bit for bit), with each rank's launch counts (kernels 1-2 on both ranks
-   under space=2, kernels 4-6 on both for the U-Net), then
+   under space=2, kernels 4-6 on both for the U-Net: 16 conv calls and one
+   moments call per batch of slabs), then
    `run_plate_multiprocess` from phase 8's ND2 files (tables equal to phase
    8's); wells/s of the two-rank runs; a one-rank group with the default
    backend (NCCL for card tensors) runs `halo_exchange`,
-   `sharded_histogram_uint16` and `sharded_otsu_threshold` against their
-   single-device counterparts;
+   `sharded_histogram_uint16`, `sharded_otsu_threshold` and
+   `make_sharded_otsu` against their single-device counterparts;
 15. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
@@ -451,6 +460,69 @@ def check_conv(m, x, wt, kw, moments: bool) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def conv_slabs(m, x, wt, kw, moments: bool, split: int):
+    """The conv of x's rows [0, split) and [split, H) as two row-slab calls,
+    each with its one halo row of the other: (y, partials) concatenated
+    along the rows and the tiles."""
+    h = x.shape[1]
+    ys, parts = [], []
+    for lo, hi in ((0, split), (split, h)):
+        top, bottom = int(lo > 0), int(hi < h)
+        k = dict(kw)
+        if "accum" in k:
+            k["accum"] = k["accum"][:, lo:hi].contiguous()
+        out = m.conv_cuda.conv3x3_fused(x[:, lo - top : hi + bottom].contiguous(), wt, top=top,
+                                        bottom=bottom, emit_moments=moments, partials=moments, **k)
+        ys.append(out[0] if moments else out)
+        if moments:
+            parts.append(out[1])
+    return torch.cat(ys, 1), (torch.cat(parts, 1) if moments else None)
+
+
+def slabs_equal_whole(m, x, wt, kw, moments: bool, split: int) -> bool:
+    """Two slab calls, concatenated, against the whole-image call: y and the
+    moment partials bit for bit."""
+    whole = m.conv_cuda.conv3x3_fused(x, wt, emit_moments=moments, partials=moments, **kw)
+    y, part = conv_slabs(m, x, wt, kw, moments, split)
+    same = torch.equal((whole[0] if moments else whole).view(torch.int16), y.view(torch.int16))
+    return same and (not moments or torch.equal(whole[1].view(torch.int32), part.view(torch.int32)))
+
+
+def probe_library_slabs(m, n: int, size: int, dev) -> dict[str, bool]:
+    """Whether the forward's calls outside the kernels give a row slab's
+    rows the bits of the whole image's: the stem's float32 F.conv2d (with a
+    halo row, cropped) and the 1x1 projections and the head as the forward
+    runs them (`unet._project`: cuBLAS's bf16 @, or a float32 GEMM where K
+    or N is 3), each split at half the rows of its level. Beside them, for
+    the record, cuBLAS's bf16 @ at the two narrow shapes, which the forward
+    does not run ("cuBLAS ..." entries)."""
+    g = torch.Generator(device=dev).manual_seed(500)
+    bf = torch.bfloat16
+    out = {}
+    x = torch.rand((n, size, size, 3), generator=g, device=dev).to(bf)
+    w = (torch.randn((3, 3, 32, 3), generator=g, device=dev) * 0.3).to(bf)
+    whole = m.conv_cuda.conv2d_f32(x, w)
+    s = size // 2
+    top_half = m.conv_cuda.conv2d_f32(x[:, : s + 1], w, 0, 1)
+    bottom_half = m.conv_cuda.conv2d_f32(x[:, s - 1 :], w, 1, 0)
+    out["stem F.conv2d float32"] = torch.equal(whole, torch.cat([top_half, bottom_half], 1))
+    del x, whole, top_half, bottom_half
+    for name, h, c, co in (("down0.proj", size, 3, 32), ("down1.proj", size // 2, 32, 64),
+                           ("down2.proj", size // 4, 64, 128), ("down3.proj", size // 8, 128, 256),
+                           ("up0.proj up", size // 8, 256, 128), ("up0.proj skip", size // 4, 128, 128),
+                           ("up1.proj up", size // 4, 128, 64), ("up1.proj skip", size // 2, 64, 64),
+                           ("up2.proj up", size // 2, 64, 32), ("up2.proj skip", size, 32, 32),
+                           ("head", size, 32, 3)):
+        a = torch.randn((n, h, h, c), generator=g, device=dev).to(bf)
+        wt = (torch.randn((c, co), generator=g, device=dev) / math.sqrt(c)).to(bf)
+        for label, fn in ((name, m.unet._project), (f"cuBLAS {name}", torch.matmul)):
+            if label == name or min(c, co) < 32:
+                out[label] = torch.equal(fn(a, wt), torch.cat([fn(a[:, : h // 2], wt),
+                                                               fn(a[:, h // 2 :], wt)], 1))
+        del a
+    return out
+
+
 def compare_with(path: str, kernels: list, conv_ms: dict, say) -> None:
     """Print each kernel's time in the earlier run's `kernels` line beside
     this run's, and each conv call's per-call time beside this run's."""
@@ -620,9 +692,10 @@ def overlays(m, norm: list, channels: list, device) -> tuple:
 
 def mesh_rank(rank: int, world: int, store: str, data: str, rehearsal: bool) -> None:
     """One rank of phase 14's two-rank runs, a spawned process; both ranks
-    share the one card. Runs the plate on a (wells=2) and a (space=2) mesh
-    and the U-Net plate on (wells=2), each as the sharded well program on
-    the staged batch and as `PlateRunner.run` from host arrays, then
+    share the one card. Runs the plate on a (wells=2) and a (space=2) mesh,
+    the U-Net plate on (wells=2) and (space=2), and the staged classical
+    plate (li threshold, opening) on (space=2), each as the sharded well
+    program on the staged batch and as `PlateRunner.run` from host arrays, then
     `run_plate_multiprocess` on phase 8's ND2 files, and writes what it saw
     to DATA/rank<rank>.pkl. Any failure exits non-zero."""
     import pickle
@@ -647,12 +720,15 @@ def mesh_rank(rank: int, world: int, store: str, data: str, rehearsal: bool) -> 
     n_ch, size = wells.shape[1], wells.shape[-1]
     layout = m.pkg.MicroplateLayout([m.microplate.Well(id=w) for w in spec["well_ids"]])
     source = {w: wells[k] for k, w in enumerate(spec["well_ids"])}
-    configs = {k: m.plate.PlateRunConfig(**spec[k]) for k in ("classical", "unet")}
+    configs = {k: m.plate.PlateRunConfig(**spec[k]) for k in ("classical", "unet", "staged")}
     weights = m.weights.load_weights()
     out = {}
+    space2 = pmesh.MeshConfig(space_parallelism=2)
     for name, method, mesh_config in (("wells=2", "classical", pmesh.MeshConfig()),
-                                      ("space=2", "classical", pmesh.MeshConfig(space_parallelism=2)),
-                                      ("unet wells=2", "unet", pmesh.MeshConfig())):
+                                      ("space=2", "classical", space2),
+                                      ("unet wells=2", "unet", pmesh.MeshConfig()),
+                                      ("unet space=2", "unet", space2),
+                                      ("staged space=2", "staged", space2)):
         runner = m.plate.PlateRunner(configs[method], mesh_config, device=dev,
                                      unet_params=weights if method == "unet" else None)
         reset_all_counts(m)
@@ -669,6 +745,8 @@ def mesh_rank(rank: int, world: int, store: str, data: str, rehearsal: bool) -> 
                      "program_launches": program_launches, "run_launches": all_counts(m),
                      "wall": time.perf_counter() - t0, "tables": res.tables,
                      "mesh": repr(runner.mesh)}
+        if name == "unet space=2":
+            out[name]["exchange_ms"] = unet_exchange_ms(m, runner, staged, sync)
         del runner, packed, health
     paths = spec["nd2"]
     multiprocess.run_plate_multiprocess(layout, lambda w: m.nikon.load_nd2(paths[w])[0],
@@ -686,6 +764,38 @@ def mesh_rank(rank: int, world: int, store: str, data: str, rehearsal: bool) -> 
     dist.destroy_process_group()
     with open(d / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+
+
+def unet_exchange_ms(m, runner, staged: torch.Tensor, sync) -> dict[str, float]:
+    """What the U-Net's row slabs trade on a (space=2) mesh, each timed alone
+    (milliseconds per call, host clock around a synchronize, 5 calls): the
+    well program on its slabs of the batch, one halo-row exchange and one
+    moment-partials gather at full resolution (32 channels; a forward makes
+    17 and 14 such exchanges, at every level), the gather of the style
+    vector's block sums, and, for the record, an all-gather of the deepest
+    features themselves (the other way to the style vector, not taken)."""
+    from arcadia_microscopy_tools_tpu_torch.parallel import collectives
+    from arcadia_microscopy_tools_tpu_torch.parallel.mesh import SPACE_AXIS
+
+    b, n_ch, size = staged.shape[0], staged.shape[1], staged.shape[-1]
+    group = runner.mesh.group(SPACE_AXIS)
+    half = size // 2
+    program = runner._get_compiled(n_ch, (size, size))
+    act = torch.zeros((b, half, size, 32), dtype=torch.bfloat16, device=staged.device)
+    tiles = m.conv_cuda.moment_tiles(half, size, 32)
+    part = torch.zeros((b, tiles, 2, 32), device=staged.device)
+    deep = torch.zeros((b, half // 8, size // 8, 256), dtype=torch.bfloat16, device=staged.device)
+    blocks = half // 16
+    style = torch.zeros((b, blocks, 256), device=staged.device)
+    calls = {
+        "program": lambda: program(staged),
+        "halo rows (level 0, 32 channels)": lambda: collectives.halo_rows_nhwc(act, group),
+        "moment partials (level 0)": lambda: collectives.all_gather_rows(part, [tiles] * 2, group),
+        "style block sums": lambda: collectives.all_gather_rows(style, [blocks] * 2, group),
+        "deepest features, not taken": lambda: collectives.all_gather_rows(
+            deep, [half // 8] * 2, group),
+    }
+    return {k: time_host(fn, 5, sync) for k, fn in calls.items()}
 
 
 def spawn_ranks(world: int, data: Path, rehearsal: bool, timeout: float) -> list[dict]:
@@ -893,6 +1003,33 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         if not same:
             raise RuntimeError(f"conv3x3_fused is not deterministic on {label}")
         del x, wt, kw, y1, y2
+    # the conv on row slabs (a spatially sharded U-Net): halo rows against the
+    # plain version, and each forward shape split at half its rows (1024
+    # full-resolution rows at every level, a multiple of every tile height)
+    # as two slab calls, concatenated, against the whole-image call
+    for k, (name, c, co, h, pro, acc, mom) in enumerate(conv_calls):
+        x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=k)
+        split = h // 2
+        same = slabs_equal_whole(m, x, wt, kw, mom, split)
+        top, bottom = ((0, 1), (1, 0), (1, 1))[k % 3]
+        halo_kw = dict(kw, top=top, bottom=bottom)
+        if acc:
+            halo_kw["accum"] = kw["accum"][:, :split].contiguous()
+        err = check_conv(m, x[:, : split + top + bottom].contiguous(), wt, halo_kw, mom)
+        max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
+        say(f"[kernels] conv3x3_fused {name} on row slabs: rows [0, {split}) and [{split}, {h}) "
+            f"with one halo row each, concatenated, equal the whole-image call bit for bit (y "
+            f"{'and moment partials' if mom else 'only'}): {same}; a slab of {split} rows with "
+            f"top {top} / bottom {bottom} halo rows against its plain version: max abs err {err:g}, "
+            f"within one bf16 step")
+        if not same:
+            raise RuntimeError(f"conv3x3_fused on row slabs differs from the whole image on {name}")
+        del x, wt, kw, halo_kw
+    probe = probe_library_slabs(m, n_wells, seg_size, dev)
+    say(f"[kernels] the forward's calls outside the kernels on row slabs (halves of each level's "
+        f"rows) give the whole image's bits: {json.dumps(probe)}")
+    if not all(v for k, v in probe.items() if not k.startswith("cuBLAS")):
+        raise RuntimeError("a call of the forward gives a row slab other bits than the whole image")
     gn_cases = [(n_wells, seg_size, seg_size, 32), (1, 1000, 1504, 32), (2, 37, 45, 64),
                 (1, 64, 64, 256)] if not rehearsal else [(2, 64, 64, 32), (1, 37, 45, 64)]
     for k, shape in enumerate(gn_cases):
@@ -904,9 +1041,19 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         max_err["lane_moments"] = max(
             max_err["lane_moments"], max(float((a - b).abs().max()) for a, b in zip(got, want))
         )
-        say(f"[kernels] lane_moments {tuple(shape)}: max relative err {rel:.2e} (limit 1e-5)")
+        run = gn_cuda.lane_rows(shape[2])
+        split = shape[1] // 2 // run * run  # a row slab starts on a multiple of the run
+        slabs = torch.cat([gn_cuda.lane_moments(x[:, :split].contiguous(), partials=True),
+                           gn_cuda.lane_moments(x[:, split:].contiguous(), partials=True)], 1)
+        same = torch.equal(slabs.view(torch.int32),
+                           gn_cuda.lane_moments(x, partials=True).view(torch.int32))
+        say(f"[kernels] lane_moments {tuple(shape)}: max relative err {rel:.2e} (limit 1e-5); "
+            f"runs of {run} rows, slabs split at row {split} give the whole image's partials bit "
+            f"for bit: {same}")
         if rel > 1e-5:
             raise RuntimeError("lane_moments differs from its plain version beyond 1e-5")
+        if not same:
+            raise RuntimeError("lane_moments on row slabs differs from the whole image")
     sync()
 
     # kernel 3 on the timelapse configuration's stack and on edge cases
@@ -1973,6 +2120,15 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     # ND2 files; each against the single-process results bit for bit
     unet_packed, unet_health = (t.cpu().numpy() for t in m.plate._build_well_program(
         unet_config, n_ch, unet_runner.network)(staged))
+    # the classical configuration outside the fused histogram frontend: li
+    # threshold and an opening, the staged mask, on one process
+    staged_config = m.plate.PlateRunConfig(max_cells=1024, min_size=20, threshold_method="li",
+                                           opening_radius=2)
+    staged_packed, staged_health = (t.cpu().numpy() for t in m.plate._build_well_program(
+        staged_config, n_ch)(staged))
+    staged_results = m.plate.PlateRunner(staged_config, device=dev).run(layout, source)
+    say(f"[mesh] staged classical (li, opening 2) on one process: cells per well "
+        f"{[len(staged_results.tables[w]) for w in layout.well_ids]}")
     mesh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     cleanup.callback(shutil.rmtree, mesh_dir, ignore_errors=True)
     np.save(mesh_dir / "wells.npy", wells)
@@ -1980,16 +2136,24 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         "well_ids": list(layout.well_ids),
         "classical": dataclasses.asdict(config),
         "unet": dataclasses.asdict(unet_config),
+        "staged": dataclasses.asdict(staged_config),
         "nd2": {w: str(p) for w, p in nd2_paths.items()},
     }))
     t0 = time.perf_counter()
     ranks = spawn_ranks(2, mesh_dir, rehearsal, timeout=420)
     say(f"[mesh] two spawned ranks on the one card finished in {time.perf_counter() - t0:.1f} s "
         f"(start-up, kernel libraries reused, every run below)")
-    wants = {"wells=2": (packed, health, results, ("local_cc", "local_resweep")),
-             "space=2": (packed, health, results, ("local_cc", "local_resweep")),
-             "unet wells=2": (unet_packed, unet_health, unet_results,
-                              ("conv3x3_fused", "lane_moments", "diffuse"))}
+    # launches each rank's program must make: a count, or None for at least one
+    cc = {"local_cc": None, "local_resweep": None}
+    unet_kernels = {"conv3x3_fused": None, "lane_moments": None, "diffuse": None}
+    wants = {"wells=2": (packed, health, results, cc),
+             "space=2": (packed, health, results, cc),
+             "unet wells=2": (unet_packed, unet_health, unet_results, unet_kernels),
+             # one batch of 8 slabs: 16 conv calls, the stem's moments, and the QC
+             # repeated on each rank of the space group
+             "unet space=2": (unet_packed, unet_health, unet_results,
+                              {"conv3x3_fused": 16, "lane_moments": 1, "diffuse": None}),
+             "staged space=2": (staged_packed, staged_health, staged_results, cc)}
     mesh_rates = {}
     for name, (want_p, want_h, want_res, kernels_used) in wants.items():
         for r, got in enumerate(ranks):
@@ -2001,9 +2165,16 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
                 f"process's bit for bit {same_prog}; tables bit for bit {exact}; program launches "
                 f"{g['program_launches']}; PlateRunner.run launches {g['run_launches']}; run "
                 f"{g['wall']:.3f} s")
+            if "exchange_ms" in g:
+                say(f"[mesh] {name} rank {r}: ms per call {json.dumps(g['exchange_ms'])} on {smi}")
             if not (same_prog and exact):
                 raise RuntimeError(f"{name} rank {r} differs from the single-process program")
-            if not rehearsal and min(g["run_launches"][k] for k in kernels_used) <= 0:
+            launched = all(
+                g[run][k] >= 1 if want is None else g[run][k] == want
+                for k, want in kernels_used.items()
+                for run in (("program_launches", "run_launches") if want is not None
+                            else ("run_launches",)))
+            if not rehearsal and not launched:
                 raise RuntimeError(f"{name} rank {r} did not launch {kernels_used}")
         mesh_rates[name] = round(n_wells / max(got[name]["wall"] for got in ranks), 3)
     for r, got in enumerate(ranks):
@@ -2039,11 +2210,15 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
                               histogram_int(frame, 65536)[0])
         otsu_ok = torch.equal(collectives.sharded_otsu_threshold(frame, group),
                               m.threshold.threshold_otsu(frame))
+        from arcadia_microscopy_tools_tpu_torch.parallel import mesh as pmesh
+
+        make_ok = torch.equal(collectives.make_sharded_otsu(pmesh.create_mesh())(frame),
+                              m.threshold.threshold_otsu(frame))
         say(f"[mesh] one-rank group, backend {dist.get_backend()}, on {x.device} tensors: "
             f"halo_exchange (64 rows) equal to edge padding {halo_ok}, sharded_histogram_uint16 "
             f"equal to the histogram {hist_ok}, sharded_otsu_threshold equal to threshold_otsu "
-            f"{otsu_ok}")
-        if not (halo_ok and hist_ok and otsu_ok):
+            f"{otsu_ok}, make_sharded_otsu(create_mesh()) equal to threshold_otsu {make_ok}")
+        if not (halo_ok and hist_ok and otsu_ok and make_ok):
             raise RuntimeError("a collective on the one-rank group differs from its single-device "
                                "counterpart")
     finally:

@@ -125,6 +125,52 @@ def test_conv3x3_fused_gives_the_same_bits_twice(cuda_device, b, h, w, c, co):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 64, 80, 32, 32), (1, 32, 70, 64, 128), (1, 16, 40, 256, 256)])
+def test_conv3x3_fused_row_slabs(cuda_device, b, h, w, c, co):
+    """Halo rows (top / bottom): within one bf16 step of the plain version;
+    two slabs split at half the rows (a multiple of every tile height),
+    concatenated, equal the whole-image call bit for bit, y and partials."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = _bf16(g, b, h, w, c, device=cuda_device)
+    wt = _bf16(g, 3, 3, co, c, scale=0.05, device=cuda_device)
+    pro = (torch.randn((b, c), generator=g, device=cuda_device) + 1,
+           torch.randn((b, c), generator=g, device=cuda_device) * 0.1)
+    acc = _bf16(g, b, h, w, co, device=cuda_device)
+    s = h // 2
+    for kw in ({}, {"prologue": pro, "relu": True}, {"accum": acc}):
+        whole = conv_cuda.conv3x3_fused(x, wt, emit_moments=True, partials=True, **kw)
+        halves = []
+        for lo, hi in ((0, s), (s, h)):
+            top, bottom = int(lo > 0), int(hi < h)
+            k = dict(kw, accum=acc[:, lo:hi].contiguous()) if "accum" in kw else kw
+            xs = x[:, lo - top : hi + bottom].contiguous()
+            y, part = conv_cuda.conv3x3_fused(xs, wt, top=top, bottom=bottom, emit_moments=True,
+                                              partials=True, **k)
+            yw = conv_cuda.conv3x3_fused_plain(xs, wt, top=top, bottom=bottom, **k).float()
+            assert bool(((y.float() - yw).abs() <= yw.abs() / 128 + 1e-4 * yw.abs().max()).all())
+            halves.append((y, part))
+        assert torch.equal(torch.cat([halves[0][0], halves[1][0]], 1).view(torch.int16),
+                           whole[0].view(torch.int16))
+        assert torch.equal(torch.cat([halves[0][1], halves[1][1]], 1).view(torch.int32),
+                           whole[1].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_lane_moments_row_slabs(cuda_device):
+    """Runs of whole rows: slabs split on a multiple of the run give the
+    whole image's partials bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for shape in [(2, 128, 2048, 32), (2, 120, 104, 64), (1, 40, 1504, 32)]:
+        x = _bf16(g, *shape, device=cuda_device)
+        run = gn_cuda.lane_rows(shape[2])
+        s = shape[1] // 2 // run * run
+        halves = [gn_cuda.lane_moments(x[:, :s].contiguous(), partials=True),
+                  gn_cuda.lane_moments(x[:, s:].contiguous(), partials=True)]
+        whole = gn_cuda.lane_moments(x, partials=True)
+        assert torch.equal(torch.cat(halves, 1).view(torch.int32), whole.view(torch.int32))
+
+
+@pytest.mark.gpu
 def test_lane_moments_matches_plain(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     for shape in [(2, 64, 64, 32), (1, 37, 45, 64), (1, 100, 100, 256)]:

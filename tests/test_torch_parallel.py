@@ -7,7 +7,14 @@ device="cpu" (tests/torch_mesh_ranks.py; one spawn of 8 ranks and one of 2
 serve every test here). The JAX package runs its sharded programs in this
 process on the 8 virtual CPU devices of tests/conftest.py. Held:
 - port sharded against port single-process: packed columns, health and
-  tables bit for bit;
+  tables bit for bit, for the fused classical program, the staged classical
+  mask (thresholds outside the histogram frontend, an opening) and the U-Net
+  on row slabs (the trained weights; the plain conv and moments versions
+  give a slab the whole image's bits on the CPU, so no tolerance is needed);
+  the U-Net runner on (space=2) is also held against the JAX package's
+  (space=2) runner with test_torch_plate_unet.py's runner tolerance (cell
+  counts within one, mean areas within 5%: the two bf16 forwards round at
+  different points);
 - port against JAX: health and integer columns equal, float columns within
   test_torch_plate's tolerances (rtol 1e-5, atol 1e-4), orientation modulo
   pi off moment ties. The inputs are wells on which the reference's float32
@@ -21,6 +28,8 @@ another convolution for a batch of one, which moves the DoG's last bits.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +42,7 @@ from jax.sharding import PartitionSpec
 import reference_impl as ref
 from arcadia_microscopy_tools_tpu.core.microplate import MicroplateLayout as JaxLayout
 from arcadia_microscopy_tools_tpu.core.microplate import Well as JaxWell
+from arcadia_microscopy_tools_tpu.models.weights import load_checkpoint
 from arcadia_microscopy_tools_tpu.ops.filters import gaussian_filter as jax_gaussian_filter
 from arcadia_microscopy_tools_tpu.parallel import MeshConfig as JaxMeshConfig
 from arcadia_microscopy_tools_tpu.parallel import create_mesh as jax_create_mesh
@@ -42,6 +52,9 @@ from arcadia_microscopy_tools_tpu.parallel import sharded_otsu_threshold as jax_
 from arcadia_microscopy_tools_tpu.parallel.mesh import create_multihost_mesh as jax_multihost_mesh
 from arcadia_microscopy_tools_tpu.parallel.mesh import plate_sharding_multihost
 from arcadia_microscopy_tools_tpu_torch.core.microplate import MicroplateLayout, Well
+from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, gn_cuda
+from arcadia_microscopy_tools_tpu_torch.models.synthetic import synthesize_cells
+from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
 from arcadia_microscopy_tools_tpu_torch.ops.filters import gaussian_filter
 from arcadia_microscopy_tools_tpu_torch.ops.fused import fused_classical_mask
 from arcadia_microscopy_tools_tpu_torch.ops.labeling import component_roots
@@ -50,10 +63,11 @@ from arcadia_microscopy_tools_tpu_torch.parallel import collectives, plate
 from arcadia_microscopy_tools_tpu_torch.parallel import mesh as M
 from test_torch_measure import ATOL, RTOL, _exact_moment_ties
 from test_torch_plate import INTEGER_COLUMNS, _orientation_check
-from torch_mesh_ranks import CONFIG, run_ranks
+from torch_mesh_ranks import CONFIG, STAGED_CONFIGS, UNET_CONFIGS, run_ranks
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parent.parent
 RUNNER_CONFIG = dict(max_cells=64, min_size=20)
 
 
@@ -102,6 +116,24 @@ def _crossing_wells() -> np.ndarray:
     return out.clip(0, 65535).astype(np.uint16)
 
 
+def cell_wells(n: int, rows: int, seed: int, cols: int = 128) -> np.ndarray:
+    """(n, 2, rows, cols) uint16 wells of synthetic cells and the same at
+    half scale (test_torch_plate_unet.py's recipe), for the U-Net."""
+    wells = []
+    for k in range(n):
+        img, _ = synthesize_cells(np.random.default_rng(seed + k), (rows, cols), n_cells=30,
+                                  separation=0.95)
+        u16 = (img * 60000).astype(np.uint16)
+        wells.append(np.stack([u16, u16 // 2]))
+    return np.stack(wells)
+
+
+def _unet_cases() -> dict[str, np.ndarray]:
+    # 128 rows: two 64-row slabs; 120 rows: slabs of 64 and 56, the last one
+    # taking the edge pad to 64
+    return {"cells128": cell_wells(2, 128, seed=20), "cells120": cell_wells(2, 120, seed=30)}
+
+
 def _world_two_cases() -> dict[str, np.ndarray]:
     rng = np.random.default_rng(7)
     return {
@@ -146,12 +178,18 @@ def eight(inputs, tmp_path_factory):
 def two(inputs, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("two_ranks")
     cases = {f"case_{k}": v for k, v in _world_two_cases().items()}
+    cases.update({f"unet_{k}": v for k, v in _unet_cases().items()})
     np.savez(tmp / "inputs.npz", halo_tall=inputs["halo_tall"], **cases)
     return run_ranks("two_ranks", 2, tmp)
 
 
-def _single(x: np.ndarray, config: dict):
-    packed, health = plate._build_well_program(plate.PlateRunConfig(**config), x.shape[1])(
+@pytest.fixture(scope="module")
+def network():
+    return plate.unet_network(load_weights(), "cpu")
+
+
+def _single(x: np.ndarray, config: dict, network=None):
+    packed, health = plate._build_well_program(plate.PlateRunConfig(**config), x.shape[1], network)(
         torch.from_numpy(x))
     return packed.numpy(), health.numpy()
 
@@ -309,6 +347,14 @@ class TestCollectives:
         for r, want in zip(two, rows):
             np.testing.assert_array_equal(r["tall halo"], x[want])
 
+    def test_make_sharded_otsu_equals_global(self, two):
+        """`make_sharded_otsu` over the space axis of a (space=2) mesh, each
+        rank passing its 32 of 64 rows: the whole image's threshold."""
+        img = torch.from_numpy(_world_two_cases()["blobs64"][0, 0])
+        single = float(threshold_otsu(img))
+        assert [r["otsu"] for r in two] == [single, single]
+        assert float(collectives.make_sharded_otsu(M.create_mesh())(img)) == single
+
     def test_single_shard_needs_no_group(self, inputs):
         x = torch.from_numpy(inputs["halo_tall"])
         padded = collectives.halo_exchange(x, 80, None)
@@ -349,15 +395,45 @@ class TestRowShardedProgram:
         _, health = _single(x["noise192"], dict(max_cells=4, min_size=4, fg_cap_fraction=0.0002))
         assert health[:, 1].all() and (health[:, 0] > 4).all()
 
-    def test_spatial_unet_raises_not_implemented(self, two):
+    @pytest.mark.parametrize("case", ["blobs64", "ragged71", "crossing"])
+    @pytest.mark.parametrize("config", list(STAGED_CONFIGS))
+    def test_staged_mask_on_slabs_equals_the_single_process(self, two, config, case):
+        """Thresholds outside the fused histogram frontend and an opening:
+        the segmentation channel gathered and the staged mask run whole on
+        each rank; packed columns and health bit for bit."""
+        want = _single(_world_two_cases()[case], STAGED_CONFIGS[config])
         for r in two:
-            assert r["unet refused"].startswith("NotImplementedError")
-            assert "ROADMAP.md" in r["unet refused"]
-        slab = plate.RowSlab(None, 0, 64)
-        with pytest.raises(NotImplementedError, match="spatially sharded U-Net"):
-            plate._build_well_program(plate.PlateRunConfig(method="unet"), 2, slab=slab)
-        with pytest.raises(NotImplementedError, match="histogram frontend"):
-            plate._build_well_program(plate.PlateRunConfig(opening_radius=2), 2, slab=slab)
+            got = r["programs"][("space=2", config, case)]
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+
+    @pytest.mark.parametrize("case", ["cells128", "cells120"])
+    @pytest.mark.parametrize("config", list(UNET_CONFIGS))
+    def test_unet_on_slabs_equals_the_single_process(self, two, network, config, case):
+        """The U-Net forward on row slabs (halo rows, gathered GroupNorm
+        partials and deepest features) and the compact tail from the slabs'
+        lists: packed columns and health bit for bit, also where the active
+        pixels overflow the list and the cells max_cells."""
+        want = _single(_unet_cases()[case], UNET_CONFIGS[config], network)
+        for r in two:
+            got = r["programs"][("space=2", config, case)]
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+
+    def test_unet_cases_reach_what_they_name(self, network):
+        """The default config finds cells in every well, some of them
+        across the slab edge; "over capacity" overflows the active-pixel
+        list and exceeds max_cells in every well."""
+        cols = plate._PROP_COLUMNS
+        for case, x in _unet_cases().items():
+            packed, health = _single(x, UNET_CONFIGS["default"], network)
+            assert (health[:, 0] >= 5).all() and not health[:, 1].any(), case
+            lo = packed[..., cols.index("bbox_min_row")]
+            hi = packed[..., cols.index("bbox_max_row")]
+            valid = packed[..., cols.index("valid")] > 0.5
+            assert (valid & (lo < 64) & (hi > 64)).any(), case
+            _, health = _single(x, UNET_CONFIGS["over capacity"], network)
+            assert health[:, 1].all() and (health[:, 0] > 4).all(), case
 
     @pytest.mark.parametrize("mesh", ["wells=2", "space=2"])
     def test_runner_tables_equal_the_single_process(self, two, mesh):
@@ -367,6 +443,21 @@ class TestRowShardedProgram:
             _layout(ids), dict(zip(ids, wells))).tables
         for r in two:
             _assert_tables_equal(r[f"runner {mesh}"], want)
+
+    @pytest.mark.parametrize("method", ["staged", "unet"])
+    def test_runner_tables_on_slabs_equal_the_single_process(self, two, method):
+        """PlateRunner on (space=2) with the staged classical mask (li,
+        opening 2) and with the U-Net: the single process's tables bit for
+        bit."""
+        config, wells, params = {
+            "staged": (STAGED_CONFIGS["li, opening 2"], _world_two_cases()["blobs128"], None),
+            "unet": (UNET_CONFIGS["default"], _unet_cases()["cells128"], load_weights()),
+        }[method]
+        ids = _ids(len(wells), "C")
+        want = plate.PlateRunner(plate.PlateRunConfig(**config), device="cpu",
+                                 unet_params=params).run(_layout(ids), dict(zip(ids, wells))).tables
+        for r in two:
+            _assert_tables_equal(r[f"runner {method} space=2"], want)
 
 
 class TestPlateRunner:
@@ -385,6 +476,26 @@ class TestPlateRunner:
         theirs = jax_plate.PlateRunner(jax_config, mesh=jax_multihost_mesh(2)).run(
             JaxLayout([JaxWell(id=i) for i in ids]), source)
         _assert_tables_match_jax(want, theirs, wells, ids)
+
+    def test_spatial_unet_runner_matches_jax(self, two):
+        """The U-Net runner on (space=2) against the JAX package's runner on
+        a (space=2) mesh of the same trained weights: cell counts within
+        one and mean areas within 5% (test_torch_plate_unet.py's runner
+        tolerance)."""
+        wells = _unet_cases()["cells128"]
+        ids = _ids(len(wells), "C")
+        params = jax.tree.map(np.asarray, load_checkpoint(REPO / "checkpoints" / "unet"))
+        jax_config = jax_plate.PlateRunConfig(**UNET_CONFIGS["default"])
+        theirs = jax_plate.PlateRunner(jax_config, JaxMeshConfig(space_parallelism=2),
+                                       unet_params=params).run(
+            JaxLayout([JaxWell(id=i) for i in ids]), dict(zip(ids, wells))).tables
+        for r in two:
+            ours = r["runner unet space=2"]
+            for w in ids:
+                a, b = ours[w], theirs[w]
+                assert list(a.columns) == list(b.columns)
+                assert abs(len(a) - len(b)) <= 1 and len(b) >= 5
+                assert abs(a["area"].mean() / b["area"].mean() - 1) < 0.05
 
     def test_spatial_sharding_matches_single_chip(self, eight, inputs):
         """space_parallelism=4 on 8 ranks (wells=2, space=4): the single
@@ -412,6 +523,125 @@ class TestPlateRunner:
         assert M.Shard(3, 4, 3, 4).image_rows(70) == slice(54, 70)
         with pytest.raises(ValueError, match="without rows"):
             M.Shard(0, 1, 0, 4).image_rows(3)
+
+
+# the 16 conv calls of a U-Net forward on 64^2 images, as chip_smoke.py's
+# forward_conv_shapes lists them: (name, C, Co, rows, prologue + ReLU, accum)
+FORWARD_CONVS = [
+    ("down0.conv2", 32, 32, 64, True, False),
+    ("down1.conv1", 32, 64, 32, False, False),
+    ("down1.conv2", 64, 64, 32, True, False),
+    ("down2.conv1", 64, 128, 16, False, False),
+    ("down2.conv2", 128, 128, 16, True, False),
+    ("down3.conv1", 128, 256, 8, False, False),
+    ("down3.conv2", 256, 256, 8, True, False),
+    ("up0.conv1_up", 256, 128, 16, False, False),
+    ("up0.conv1_skip", 128, 128, 16, False, True),
+    ("up0.conv2", 128, 128, 16, True, False),
+    ("up1.conv1_up", 128, 64, 32, False, False),
+    ("up1.conv1_skip", 64, 64, 32, False, True),
+    ("up1.conv2", 64, 64, 32, True, False),
+    ("up2.conv1_up", 64, 32, 64, False, False),
+    ("up2.conv1_skip", 32, 32, 64, False, True),
+    ("up2.conv2", 32, 32, 64, True, False),
+]
+
+
+class TestRowSlabs:
+    def test_row_bounds(self):
+        """Slabs of ceil(H / S) rows rounded up to the alignment, the last
+        one shorter."""
+        assert M.row_bounds(70, 4) == (0, 18, 36, 54, 70)
+        assert M.row_bounds(2048, 2, 16) == (0, 1024, 2048)
+        assert M.row_bounds(120, 2, 32) == (0, 64, 120)
+        assert M.row_bounds(2000, 4, 16) == (0, 512, 1024, 1536, 2000)
+        assert M.row_bounds(60, 2, 32) == (0, 32, 60)
+        with pytest.raises(ValueError, match="multiples of 32 rows"):
+            M.row_bounds(30, 2, 32)
+        with pytest.raises(ValueError, match="without rows"):
+            M.row_bounds(3, 4)
+
+    def test_unet_slab_alignment(self):
+        """16 rows (the conv tiles and max-pooling), more only where the
+        moments kernel's run of rows is longer (narrow wells)."""
+        assert [plate.unet_row_align(w) for w in (2048, 1000, 256, 128, 100, 30)] == (
+            [16, 16, 16, 32, 32, 128])
+        assert [gn_cuda.lane_rows(w) for w in (2048, 1504, 4096, 8192, 104)] == [2, 2, 1, 1, 32]
+
+    def test_a_well_too_small_for_aligned_slabs_raises(self):
+        runner = plate.PlateRunner(plate.PlateRunConfig(method="unet"), device="cpu")
+        runner.mesh = SimpleNamespace(shape={M.WELL_AXIS: 1, M.SPACE_AXIS: 2},
+                                      coords={M.WELL_AXIS: 0, M.SPACE_AXIS: 1},
+                                      group=lambda axis: None)
+        rows, slab = runner._slab(120, 128)
+        assert rows == slice(64, 120) and slab.row0 == 64 and slab.heights == [64, 56]
+        with pytest.raises(ValueError, match="without rows"):
+            runner._slab(30, 128)
+        runner.config = plate.PlateRunConfig()  # the classical program's slabs stay unaligned
+        assert runner._slab(30, 128)[0] == slice(15, 30)
+
+    @pytest.mark.parametrize("name, c, co, h, pro, acc", FORWARD_CONVS,
+                             ids=[c[0] for c in FORWARD_CONVS])
+    def test_conv_slabs_concatenate_to_the_whole_call(self, name, c, co, h, pro, acc):
+        """The plain conv (the CPU's) of two row slabs split at half the
+        rows (32 full-resolution rows), each with its halo row, equals the
+        whole-image call: y and the moment partials bit for bit."""
+        g = torch.Generator().manual_seed(len(name) * 31 + c + co)
+        x = torch.randn((2, h, h, c), generator=g).to(torch.bfloat16)
+        wt = (torch.randn((3, 3, co, c), generator=g) / (3 * c**0.5)).to(torch.bfloat16)
+        kw = {}
+        if pro:
+            kw.update(prologue=(torch.rand((2, c), generator=g) + 0.5,
+                                torch.randn((2, c), generator=g) * 0.1), relu=True)
+        if acc:
+            kw["accum"] = torch.randn((2, h, h, co), generator=g).to(torch.bfloat16)
+        whole = conv_cuda.conv3x3_fused(x, wt, emit_moments=True, partials=True, **kw)
+        s = h // 2
+        halves = []
+        for lo, hi in ((0, s), (s, h)):
+            top, bottom = int(lo > 0), int(hi < h)
+            k = dict(kw, accum=kw["accum"][:, lo:hi]) if acc else kw
+            halves.append(conv_cuda.conv3x3_fused(x[:, lo - top : hi + bottom], wt, top=top,
+                                                  bottom=bottom, emit_moments=True, partials=True,
+                                                  **k))
+        assert whole[1].shape[1] == conv_cuda.moment_tiles(h, h, co)
+        for i in (0, 1):
+            assert torch.equal(torch.cat([halves[0][i], halves[1][i]], 1), whole[i])
+        assert torch.equal(conv_cuda.sum_partials(whole[1])[0],
+                           conv_cuda.conv3x3_fused(x, wt, emit_moments=True, **kw)[1][0])
+
+    def test_halo_rows_are_image_pixels(self):
+        """The prologue applies to halo rows (affine(0) is not 0): a slab
+        with its halo row differs from the slab padded with zeros, and equals
+        the whole image's rows."""
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((2, 32, 64, 32), generator=g).to(torch.bfloat16)
+        wt = (torch.randn((3, 3, 32, 32), generator=g) / 16).to(torch.bfloat16)
+        pro = (torch.rand((2, 32), generator=g) + 0.5, torch.full((2, 32), 0.5))
+        whole = conv_cuda.conv3x3_fused(x, wt, prologue=pro, relu=True)
+        top = conv_cuda.conv3x3_fused(x[:, :17], wt, prologue=pro, relu=True, bottom=1)
+        alone = conv_cuda.conv3x3_fused(x[:, :16], wt, prologue=pro, relu=True)
+        assert torch.equal(top, whole[:, :16])
+        assert not torch.equal(alone[:, 15], whole[:, 15])
+        with pytest.raises(ValueError, match="halo rows"):
+            conv_cuda.conv3x3_fused(x, wt, top=2)
+
+    @pytest.mark.parametrize("shape", [(2, 128, 128, 32), (2, 120, 104, 64), (1, 40, 1504, 32)])
+    def test_lane_moment_slabs_concatenate_to_the_whole_image(self, shape):
+        """Runs of whole rows: slabs split on a multiple of the run give the
+        whole image's partials bit for bit; their sums equal the moments."""
+        g = torch.Generator().manual_seed(shape[2])
+        x = (torch.randn(shape, generator=g) * 2 + 0.5).to(torch.bfloat16)
+        whole = gn_cuda.lane_moments(x, partials=True)
+        assert whole.shape == (shape[0], gn_cuda.lane_chunks(shape[1], shape[2]), 2, shape[3])
+        s = shape[1] // 2 // gn_cuda.lane_rows(shape[2]) * gn_cuda.lane_rows(shape[2])
+        halves = [gn_cuda.lane_moments(x[:, :s], partials=True),
+                  gn_cuda.lane_moments(x[:, s:], partials=True)]
+        assert torch.equal(torch.cat(halves, 1), whole)
+        s1, s2 = gn_cuda.lane_moments(x)
+        f = x.double()
+        np.testing.assert_allclose(s1.numpy(), f.sum((1, 2)).numpy(), rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(s2.numpy(), (f * f).sum((1, 2)).numpy(), rtol=1e-5)
 
 
 def test_jax_config_carries_over():

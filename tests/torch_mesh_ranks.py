@@ -20,6 +20,22 @@ import numpy as np
 import torch
 
 CONFIG = dict(max_cells=32, min_size=4)
+# the classical configurations outside the fused histogram frontend, which
+# take the staged mask (gathered whole on every rank of a space group)
+STAGED_CONFIGS = {
+    "li, opening 2": dict(CONFIG, threshold_method="li", opening_radius=2),
+    "mean": dict(CONFIG, threshold_method="mean"),
+    "triangle": dict(CONFIG, threshold_method="triangle"),
+}
+# the U-Net plate: the trained weights; in "over capacity" about 3 of 4
+# pixels pass the cell probability, more than the compact tail's 8192 slots
+# (the cut falls inside the second slab), and, without the QC, the cells
+# outnumber max_cells
+UNET_CONFIGS = {
+    "default": dict(method="unet", max_cells=64, min_size=15, niter=100, remove_edge_cells=True),
+    "over capacity": dict(method="unet", max_cells=4, min_size=15, niter=100,
+                          cellprob_threshold=-6.0, flow_threshold=0.0),
+}
 # the two-process plate: batches of 8 over two ranks (4 wells each, a tail
 # of 2 each), and few enough cell slots that dense wells escalate
 MULTIPROCESS_CONFIG = dict(max_cells=6, min_size=4, batch_size=8)
@@ -79,7 +95,7 @@ def _layout(ids):
     return MicroplateLayout([Well(id=i) for i in ids])
 
 
-def _programs(meshes: dict, cases: dict, configs: dict) -> dict:
+def _programs(meshes: dict, cases: dict, configs: dict, unet_params=None) -> dict:
     """The sharded well program of every (mesh, config, case): packed and
     health on this rank after the all-gather."""
     from arcadia_microscopy_tools_tpu_torch.parallel import plate
@@ -87,7 +103,8 @@ def _programs(meshes: dict, cases: dict, configs: dict) -> dict:
     out = {}
     for mname, mesh in meshes.items():
         for cname, config in configs.items():
-            runner = plate.PlateRunner(plate.PlateRunConfig(**config), mesh=mesh, device="cpu")
+            runner = plate.PlateRunner(plate.PlateRunConfig(**config), mesh=mesh, device="cpu",
+                                       unet_params=unet_params)
             for name, x in cases.items():
                 packed, health = runner._get_compiled(x.shape[1], x.shape[-2:])(torch.from_numpy(x))
                 out[(mname, cname, name)] = (packed.numpy(), health.numpy())
@@ -158,8 +175,10 @@ def eight_ranks(data: dict) -> dict:
 
 def two_ranks(data: dict) -> dict:
     """2 ranks: the program on (wells=2) and (space=2) for every case and
-    config, a halo taller than the shard, the spatial U-Net refusal, and
-    the runner's tables on both meshes."""
+    config, the staged classical configurations and the U-Net on (space=2),
+    a halo taller than the shard, `make_sharded_otsu`, and the runner's
+    tables on both meshes and for both new branches on (space=2)."""
+    from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
     from arcadia_microscopy_tools_tpu_torch.parallel import collectives
     from arcadia_microscopy_tools_tpu_torch.parallel import mesh as M
     from arcadia_microscopy_tools_tpu_torch.parallel import plate
@@ -169,14 +188,20 @@ def two_ranks(data: dict) -> dict:
     configs = {"default": CONFIG,
                "over capacity": dict(max_cells=4, min_size=4, fg_cap_fraction=0.0002)}
     out = {"programs": _programs(meshes, cases, configs)}
+    space_only = {"space=2": meshes["space=2"]}
+    staged_cases = {k: cases[k] for k in ("blobs64", "ragged71", "crossing")}
+    out["programs"].update(_programs(space_only, staged_cases, STAGED_CONFIGS))
+    weights = load_weights()
+    unet_cases = {k[len("unet_"):]: v for k, v in data.items() if k.startswith("unet_")}
+    out["programs"].update(_programs(space_only, unet_cases, UNET_CONFIGS, weights))
 
     space = meshes["space=2"]
     g = space.group(M.SPACE_AXIS)
     i = space.coords[M.SPACE_AXIS]
     x = torch.from_numpy(data["halo_tall"])  # 71 rows: slabs of 36 and 35, a halo of 40
     out["tall halo"] = collectives.halo_exchange(x[36 * i : 36 * i + 36], 40, g).numpy()
-    out["unet refused"] = _errors(lambda: plate.PlateRunner(
-        plate.PlateRunConfig(method="unet"), M.MeshConfig(space_parallelism=2), device="cpu"))
+    img = torch.from_numpy(data["case_blobs64"][0, 0])  # 64 rows: slabs of 32
+    out["otsu"] = float(collectives.make_sharded_otsu(space)(img[32 * i : 32 * i + 32]))
 
     wells = data["case_blobs128"]
     ids = [f"B{k + 1:02d}" for k in range(len(wells))]
@@ -186,6 +211,13 @@ def two_ranks(data: dict) -> dict:
             warnings.simplefilter("ignore")
             out[f"runner {name}"] = plate.PlateRunner(cfg, mesh=mesh, device="cpu").run(
                 _layout(ids), dict(zip(ids, wells))).tables
+    runners = {"staged": (STAGED_CONFIGS["li, opening 2"], wells, None),
+               "unet": (UNET_CONFIGS["default"], data["unet_cells128"], weights)}
+    for name, (config, ws, params) in runners.items():
+        ids = [f"C{k + 1:02d}" for k in range(len(ws))]
+        out[f"runner {name} space=2"] = plate.PlateRunner(
+            plate.PlateRunConfig(**config), M.MeshConfig(space_parallelism=2), device="cpu",
+            unet_params=params).run(_layout(ids), dict(zip(ids, ws))).tables
     return out
 
 
