@@ -17,7 +17,8 @@ Two routes give the same labels:
   stage - the doubling, the arrival counts, the sink clustering, the size
   filter, the QC's per-label reductions, the border filter - runs on that
   list. Sinks are clustered by a union-find over the sink pixels, not by a
-  labeling of the image.
+  labeling of the image. `compute_masks_sparse_compact_s2d` is the same
+  route reading the S2D head output of `models/unet_s2d.py`.
 
 Every function takes a leading batch axis B and computes each image as the
 JAX function computes it alone. Flat pixel indices are int64 (the JAX
@@ -38,12 +39,14 @@ import torch.nn.functional as F
 from ..ops.labeling import label, relabel_sequential, relabel_sequential_filtered
 from ..ops.segment_reduce import segment_min, segment_sums, table_lookup
 from .flows_cuda import diffuse, same_label_masks
+from .unet_s2d import _d2s
 
 __all__ = [
     "CompactMasks",
     "compute_masks",
     "compute_masks_sparse",
     "compute_masks_sparse_compact",
+    "compute_masks_sparse_compact_s2d",
     "flow_error",
     "follow_flows",
     "follow_flows_indices",
@@ -612,6 +615,41 @@ def compute_masks_sparse_compact(
     idx, valid, landing_c, ok = _follow_sparse_core(flows, active, niter, cap)
     labels, lab_c, sink_overflow = _finish_masks_compact(
         idx, valid, landing_c, flows, h, w, flow_threshold, max_cells, min_size,
+        clear_border_labels=clear_border_labels,
+    )
+    return CompactMasks(labels, lab_c, idx, valid, ok & ~sink_overflow)
+
+
+def compute_masks_sparse_compact_s2d(
+    out_s2d: torch.Tensor,
+    cap: int,
+    cellprob_threshold: float = 0.0,
+    flow_threshold: float = 0.4,
+    niter: int = 200,
+    max_cells: int = 1024,
+    min_size: int = 15,
+    clear_border_labels: bool = False,
+) -> CompactMasks:
+    """`compute_masks_sparse_compact` on the head output on the S2D grid,
+    (B, H/2, W/2, 12) in (c, a) order from `UNetS2D(...)(x, out_s2d=True)`:
+    the same CompactMasks as the planar route fed the planar tensor this one
+    permutes, but for the segment budget behind `ok`. Above 2^20 pixels the
+    reference compacts the S2D grid in segments of 8 consecutive (i, j, a)
+    elements (2 x 4 pixel blocks), and only when W/2 is even, so near the
+    budget a well can be `ok` on one route and not on the other."""
+    b, h2, w2, ch = out_s2d.shape
+    if ch != 12:
+        raise ValueError(f"expected 12 S2D channels, got {ch}")
+    network_output = _d2s(out_s2d, 3)
+    flows = network_output[..., :2] * 0.2  # the JAX package's `/ 5.0`, see flows_cuda
+    active = network_output[..., 2] > cellprob_threshold
+    idx, valid, landing_c, _ = _follow_sparse_core(flows, active, niter, cap)
+    act = (out_s2d[..., 8:12] > cellprob_threshold).reshape(b, -1)  # in (i, j, a) order
+    ok = act.sum(1) <= cap
+    if w2 % 2 == 0:
+        ok &= _segments_fit(act, cap)
+    labels, lab_c, sink_overflow = _finish_masks_compact(
+        idx, valid, landing_c, flows, 2 * h2, 2 * w2, flow_threshold, max_cells, min_size,
         clear_border_labels=clear_border_labels,
     )
     return CompactMasks(labels, lab_c, idx, valid, ok & ~sink_overflow)

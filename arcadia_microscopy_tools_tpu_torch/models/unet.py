@@ -5,9 +5,13 @@ double-conv U-Net with GroupNorm, a global style vector injected into the
 decoder, and three output maps (Y-flow, X-flow, cell-probability logits).
 Tensors are NHWC (B, H, W, C), as in the JAX package.
 
-The forward has the plain geometry of `apply_unet` (no space-to-depth
-rewrite; that trick fills the TPU's 128 lanes and has no use here) built
-from the fused blocks of the JAX package's `unet_s2d.py`:
+The forward has the plain geometry of `apply_unet`, built from the fused
+blocks of the JAX package's `unet_s2d.py`. The space-to-depth form itself
+is `models/unet_s2d.py`, the slower of the two on an H100 (`chip_smoke.py`
+phase 15: 163.3-163.9 ms per batch of 8 2048^2 wells against this
+forward's 148.7-150.0, its 13 conv calls 65.1-65.7 ms against these 16
+calls' 36.5-36.6), so the plate runner and `SegmentationModel` run this
+one. The blocks:
 
 - every stride-1 3x3 conv with an activation input runs through
   `conv3x3_fused` (the CUDA kernel on the card): conv1 emits the moments of
@@ -253,7 +257,62 @@ def _group_norm_train(x: torch.Tensor, scale, bias, groups: int) -> torch.Tensor
     return ((x.float() - mean_c) * (inv_c * scale) + bias).to(x.dtype)
 
 
-class UNet(nn.Module):
+class _FusedBlocks:
+    """The fused conv blocks of the inference forwards, `UNet.forward` and
+    `unet_s2d.UNetS2D`, on `self.config`. `rows` says what a call exchanges
+    between row slabs, `level` that the tensor holds the image's rows >>
+    level."""
+
+    def _conv(self, *args, **kwargs):
+        """`conv3x3_fused` in bfloat16 (the kernel on the card); its plain
+        version in any other dtype."""
+        if self.config.compute_dtype == torch.bfloat16:
+            return conv3x3_fused(*args, **kwargs)
+        return conv3x3_fused_plain(*args, **kwargs)
+
+    def _moments(self, rows: _Rows, y, level: int):
+        """The whole image's GN moments of `y` from `lane_moments` (the
+        CUDA kernel in bfloat16 on the card, its plain version in any other
+        dtype)."""
+        moments = lane_moments if self.config.compute_dtype == torch.bfloat16 else lane_moments_plain
+        wd = y.shape[2]
+        return rows.sums(moments(y, partials=True), level, lambda r: lane_chunks(r, wd))
+
+    def _conv_rows(self, rows: _Rows, x, w, level: int, moments: bool = False, **kwargs):
+        """`_conv` of this slab's rows with the neighbours' halo rows; with
+        `moments`, (y, the whole image's moments)."""
+        xh, top, bottom = rows.halo(x)
+        out = self._conv(xh, w, top=top, bottom=bottom, emit_moments=moments, partials=moments,
+                         **kwargs)
+        if not moments:
+            return out
+        y, part = out
+        _, _, wd, co = y.shape
+        return y, rows.sums(part, level, lambda h: moment_tiles(h, wd, co))
+
+    def _tail(self, blk: nn.Module, y1, m1, skip, rows: _Rows, level: int):
+        """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
+        then GN2 affine + residual + ReLU (rounding points of the JAX
+        package's `_fused_tail`)."""
+        dt, groups = self.config.compute_dtype, self.config.groups
+        _, _, w, c = y1.shape
+        n = rows.full(level) * w * (c // min(groups, c))
+        sc1, bi1 = gn_affine_params(m1[0], m1[1], blk.gn1_scale, blk.gn1_bias, groups, n)
+        y2, m2 = self._conv_rows(
+            rows, y1, blk.conv2.to(dt), level, moments=True, prologue=(sc1, bi1), relu=True
+        )
+        sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
+        f = y2.float()
+        del y2
+        # in place: at 2048^2 x 8 x 32 channels each float32 temporary is 4.3 GB
+        f.mul_(sc2[:, None, None, :]).add_(bi2[:, None, None, :])
+        out = f.to(dt)
+        del f
+        out += skip.to(dt)
+        return out.relu_()
+
+
+class UNet(_FusedBlocks, nn.Module):
     """The segmentation U-Net. `forward` maps (B, H, W, in_channels) float
     input, H and W multiples of 2**(levels - 1), to (B, H, W, 3) float32.
 
@@ -298,51 +357,6 @@ class UNet(nn.Module):
         for p in self.style_proj:
             he(p, p.shape[0])
         he(self.head, self.head.shape[0])
-
-    def _conv(self, *args, **kwargs):
-        """`conv3x3_fused` in bfloat16 (the kernel on the card); its plain
-        version in any other dtype."""
-        if self.config.compute_dtype == torch.bfloat16:
-            return conv3x3_fused(*args, **kwargs)
-        return conv3x3_fused_plain(*args, **kwargs)
-
-    def _moment_partials(self, x):
-        if self.config.compute_dtype == torch.bfloat16:
-            return lane_moments(x, partials=True)
-        return lane_moments_plain(x, partials=True)
-
-    def _conv_rows(self, rows: _Rows, x, w, level: int, moments: bool = False, **kwargs):
-        """`_conv` of this slab's rows with the neighbours' halo rows; with
-        `moments`, (y, the whole image's moments)."""
-        xh, top, bottom = rows.halo(x)
-        out = self._conv(xh, w, top=top, bottom=bottom, emit_moments=moments, partials=moments,
-                         **kwargs)
-        if not moments:
-            return out
-        y, part = out
-        _, _, wd, co = y.shape
-        return y, rows.sums(part, level, lambda h: moment_tiles(h, wd, co))
-
-    def _tail(self, blk: _ConvBlock, y1, m1, skip, rows: _Rows, level: int):
-        """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
-        then GN2 affine + residual + ReLU (rounding points of the JAX
-        package's `_fused_tail`)."""
-        dt, groups = self.config.compute_dtype, self.config.groups
-        _, _, w, c = y1.shape
-        n = rows.full(level) * w * (c // min(groups, c))
-        sc1, bi1 = gn_affine_params(m1[0], m1[1], blk.gn1_scale, blk.gn1_bias, groups, n)
-        y2, m2 = self._conv_rows(
-            rows, y1, blk.conv2.to(dt), level, moments=True, prologue=(sc1, bi1), relu=True
-        )
-        sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
-        f = y2.float()
-        del y2
-        # in place: at 2048^2 x 8 x 32 channels each float32 temporary is 4.3 GB
-        f.mul_(sc2[:, None, None, :]).add_(bi2[:, None, None, :])
-        out = f.to(dt)
-        del f
-        out += skip.to(dt)
-        return out.relu_()
 
     def _block_train(self, blk: _ConvBlock, x: torch.Tensor) -> torch.Tensor:
         """Residual double conv of the JAX package's `_conv_block`."""
@@ -397,8 +411,7 @@ class UNet(nn.Module):
                 hx, top, bottom = rows.halo(h)
                 y1 = conv2d_f32(hx, w(blk.conv1), top, bottom).to(dt)
                 del hx
-                wd = y1.shape[2]
-                m1 = rows.sums(self._moment_partials(y1), 0, lambda r: lane_chunks(r, wd))
+                m1 = self._moments(rows, y1, 0)
             else:
                 y1, m1 = self._conv_rows(rows, h, w(blk.conv1), i, moments=True)
             skip = h if blk.proj is None else _project(h, w(blk.proj))

@@ -33,6 +33,7 @@ __all__ = [
     "save_weights",
     "state_dict_from_tree",
     "tree_from_state_dict",
+    "unflatten_tree",
 ]
 
 # the 2-D state_dict entries with these last names are 1x1 convs, (1, 1, C, Co)
@@ -55,6 +56,27 @@ def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     for key, value in items:
         out.update(flatten_tree(value, f"{prefix}.{key}" if prefix else str(key)))
     return out
+
+
+def unflatten_tree(flat: dict[str, Any]) -> Any:
+    """The nested dict / list tree of {dotted path: leaf} (`flatten_tree`'s
+    inverse; list indices are the numeric path parts)."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def _convert(name: str, leaf: np.ndarray) -> torch.Tensor:

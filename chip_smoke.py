@@ -1,8 +1,9 @@
 """On-card smoke run of the PyTorch port: the classical and U-Net plate
 paths (staged, and from ND2 and Leica LIF files), the deep segmentation
 path, the preprocessing `Pipeline` (also on a LIF timelapse), the per-cell
-analysis and overlays of a well, the U-Net trainer, and the plate on a
-mesh of two ranks.
+analysis and overlays of a well, the U-Net trainer, the plate on a mesh
+of two ranks, and the space-to-depth (S2D) U-Net route beside the planar
+one.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -31,7 +32,10 @@ Phases, each printing its lines:
    version within one bf16 step; the forward's calls outside the kernels
    (the stem's F.conv2d, the 1x1 projections, the head) give a slab's rows
    the whole image's bits; the GroupNorm moments at 8 x 2048^2 x 32 and on
-   ragged shapes, within 1e-5, and their slabs' partials bit for bit;
+   ragged shapes, within 1e-5, and their slabs' partials bit for bit; the
+   conv and the moments also on the S2D forward's shapes the planar one
+   does not give them (128 and 256 channels at 1024^2 and 512^2, the two
+   stems' outputs);
    the rank selection bit-exact (int32 views) on the 8 x 2048^2 timelapse
    stack at window 21, windows 11, 15 and 22 (two ranks in one launch), a
    window of 255 that reads its keys from device memory, a ragged batch of
@@ -129,7 +133,21 @@ Phases, each printing its lines:
    backend (NCCL for card tensors) runs `halo_exchange`,
    `sharded_histogram_uint16`, `sharded_otsu_threshold` and
    `make_sharded_otsu` against their single-device counterparts;
-15. the `kernels` JSON line, then the card's name and power limit, then
+15. S2D U-Net (models/unet_s2d.py) - the 8 wells through the JAX plate's
+   S2D composition: the stretch, `UNetS2D(s2d_params(tree,
+   gray_input=True))(x[..., None], out_s2d=True)`, `flows.
+   compute_masks_sparse_compact_s2d` and the measurement, with the trained
+   weights: 13 conv, 2 moments and >= 1 diffusion launches; the planar
+   head equal to the S2D head permuted and the S2D compact tail equal to
+   the planar one on the permuted tensor, bit for bit; well 0's S2D
+   forward against the CPU (the bf16 gate) and its labels against phase
+   7's planar ones (>= 99% of pixels, cells +-1); ms per batch of the S2D
+   and planar forwards, timed planar, S2D, S2D, planar, with each one's
+   peak memory, and of the S2D route's compact tail, measurement and whole
+   composition beside phase 13's planar parts; the 3-channel S2D forward
+   beside the planar one on phase 5's batch; each of the 13 conv calls beside its bound and cuDNN's conv, and
+   `lane_moments` at the two stem outputs;
+16. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -138,7 +156,8 @@ tiny size on the CPU with the plain versions (a check of the script's own
 control flow); it prints no device result and exits non-zero.
 `--compare-with FILE` reads the output of an earlier run (the parent
 commit's `chip_smoke.py`, run in the same chip call) and prints each
-kernel's earlier time beside this run's, and each conv call's.
+kernel's earlier time beside this run's, and each conv call's (planar
+and S2D).
 `--profile DIR` adds a `torch.profiler` trace of one whole training step
 and one update alone, one default per-cell table
 of well 0, one forward and one mask reconstruction of the segmentation
@@ -280,6 +299,7 @@ def port_modules() -> SimpleNamespace:
         gn_cuda,
         train,
         unet,
+        unet_s2d,
         weights,
     )
     from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, compaction, filters, fused
@@ -291,7 +311,7 @@ def port_modules() -> SimpleNamespace:
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
         _build, _native, masks, operations, testing, microplate, microscopy, leica, lif, nd2, nikon,
-        conv_cuda, flows, flows_cuda, gn_cuda, train, unet, weights,
+        conv_cuda, flows, flows_cuda, gn_cuda, train, unet, unet_s2d, weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
         threshold, plate, profiling, blending,
     )}, pkg=pkg)
@@ -412,6 +432,67 @@ def forward_conv_shapes(b: int, size: int, nb=(32, 64, 128, 256)):
         calls.append((f"up{i}.conv1_skip", co, co, h, False, True, True))
         calls.append((f"up{i}.conv2", co, co, h, True, False, True))
     return calls
+
+
+def s2d_conv_shapes(b: int, size: int, nb=(32, 64, 128, 256)):
+    """The 13 conv3x3_fused calls of one S2D forward (models/unet_s2d.py) on
+    (b, size, size): (name, C, Co, H, prologue+ReLU, accum, moments), in
+    call order. Levels 0-1 run at half their resolution with 4x the
+    channels; the stems, up0's and up2's up parts are cuDNN convs."""
+    h0, h1, h2 = size // 2, size // 4, size // 8
+    c0, c1 = 4 * nb[0], 4 * nb[1]
+    return [
+        ("s2d.down0.conv2", c0, c0, h0, True, False, True),
+        ("s2d.down1.conv2", c1, c1, h1, True, False, True),
+        ("s2d.down2.conv1", nb[1], nb[2], h1, False, False, True),
+        ("s2d.down2.conv2", nb[2], nb[2], h1, True, False, True),
+        ("s2d.down3.conv1", nb[2], nb[3], h2, False, False, True),
+        ("s2d.down3.conv2", nb[3], nb[3], h2, True, False, True),
+        ("s2d.up0.conv1_skip", nb[2], nb[2], h1, False, True, True),
+        ("s2d.up0.conv2", nb[2], nb[2], h1, True, False, True),
+        ("s2d.up1.conv1_up", nb[2], c1, h1, False, False, False),
+        ("s2d.up1.conv1_skip", c1, c1, h1, False, True, True),
+        ("s2d.up1.conv2", c1, c1, h1, True, False, True),
+        ("s2d.up2.conv1_skip", c0, c0, h0, False, True, True),
+        ("s2d.up2.conv2", c0, c0, h0, True, False, True),
+    ]
+
+
+def time_conv_calls(m, calls, n: int, dev, timed, rehearsal: bool, say) -> tuple[dict, dict]:
+    """Each conv3x3_fused call of `calls` ((name, C, Co, H, prologue+ReLU,
+    accum, moments) on n images of H^2) timed at its shape, beside its
+    bound (bytes: x, y and accum read or written once and the weights; or
+    bf16 tensor-core operations), its plain version and cuDNN's bf16
+    F.conv2d on the same shape, each printed; returns the totals and each
+    call's ms by name."""
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, bound=0.0)
+    conv_ms = {}
+    for k, (name, c, co, h, pro, acc, mom) in enumerate(calls):
+        x, wt, kw = conv_operands(n, h, h, c, co, pro, acc, dev, seed=k)
+        ms, plain_ms = timed(lambda: m.conv_cuda.conv3x3_fused(x, wt, emit_moments=mom, **kw),
+                             lambda: m.conv_cuda.conv3x3_fused_plain(x, wt, emit_moments=mom, **kw),
+                             kreps=10)
+        if rehearsal:
+            lib_ms = plain_ms
+        else:
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+            wc = wt.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib_ms = time_cuda(lambda: torch.nn.functional.conv2d(xc, wc, padding=1), reps=10)
+        px_l = n * h * h
+        nbytes = 2 * px_l * (c + co + (co if acc else 0)) + 2 * 9 * c * co
+        flop = 2 * 9 * c * co * px_l
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_TENSOR_FLOP_PER_S * 1e3
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bytes", b_ms),
+                       ("ops", o_ms), ("bound", max(b_ms, o_ms))):
+            tot[key] += v
+        conv_ms[name] = ms
+        say(f"[time] conv3x3_fused {name} {n}x{h}^2 {c}->{co}: {ms:.4f} ms "
+            f"({flop / ms / 1e9:.1f} TFLOP/s); bound {max(b_ms, o_ms):.4f} ms, "
+            f"{max(b_ms, o_ms) / ms:.1%} of it reached "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}); plain {plain_ms:.3f} ms; "
+            f"F.conv2d bf16 conv only {lib_ms:.4f} ms")
+        del x, wt, kw
+    return tot, conv_ms
 
 
 def conv_operands(b, h, w, c, co, pro, acc, dev, seed):
@@ -971,6 +1052,17 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         say(f"[kernels] conv3x3_fused {name} ({n_wells}x{h}^2, {c}->{co}, prologue+relu {pro}, "
             f"accum {acc}, moments {mom}): max abs err {err:g}, within one bf16 step")
         del x, wt, kw
+    # the S2D forward's shapes that the planar forward does not give the kernel:
+    # 128 and 256 channels at 4x the planar 128/256 levels' pixels
+    planar_keys = {call[1:] for call in conv_calls}
+    s2d_new = [call for call in s2d_conv_shapes(n_wells, seg_size) if call[1:] not in planar_keys]
+    for k, (name, c, co, h, pro, acc, mom) in enumerate(s2d_new):
+        x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=600 + k)
+        err = check_conv(m, x, wt, kw, mom)
+        max_err["conv3x3_fused"] = max(max_err["conv3x3_fused"], err)
+        say(f"[kernels] conv3x3_fused {name} ({n_wells}x{h}^2, {c}->{co}, prologue+relu {pro}, "
+            f"accum {acc}, moments {mom}): max abs err {err:g}, within one bf16 step")
+        del x, wt, kw
     for k, (name, b, h, w, c, co, pro, mom) in enumerate(extra_conv):
         x, wt, kw = conv_operands(b, h, w, c, co, pro, True, dev, seed=100 + k)
         err = check_conv(m, x, wt, kw, mom)
@@ -1032,6 +1124,8 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         raise RuntimeError("a call of the forward gives a row slab other bits than the whole image")
     gn_cases = [(n_wells, seg_size, seg_size, 32), (1, 1000, 1504, 32), (2, 37, 45, 64),
                 (1, 64, 64, 256)] if not rehearsal else [(2, 64, 64, 32), (1, 37, 45, 64)]
+    # the S2D stems' outputs
+    gn_cases += [(n_wells, seg_size // 2, seg_size // 2, 128), (n_wells, seg_size // 4, seg_size // 4, 256)]
     for k, shape in enumerate(gn_cases):
         g = torch.Generator(device=dev).manual_seed(200 + k)
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
@@ -1961,33 +2055,7 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
             f"path {seg_launches[name]}, per-cell path {cell_launches[name]}")
 
     # fused conv: the 16 calls of one forward, each timed at its shape
-    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0, bound=0.0)
-    conv_ms = {}
-    for k, (name, c, co, h, pro, acc, mom) in enumerate(conv_calls):
-        x, wt, kw = conv_operands(n_wells, h, h, c, co, pro, acc, dev, seed=k)
-        ms, plain_ms = timed(lambda: conv_cuda.conv3x3_fused(x, wt, emit_moments=mom, **kw),
-                             lambda: conv_cuda.conv3x3_fused_plain(x, wt, emit_moments=mom, **kw),
-                             kreps=10)
-        if rehearsal:
-            lib_ms = plain_ms
-        else:
-            xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
-            wc = wt.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
-            lib_ms = time_cuda(lambda: torch.nn.functional.conv2d(xc, wc, padding=1), reps=10)
-        px_l = n_wells * h * h
-        nbytes = 2 * px_l * (c + co + (co if acc else 0)) + 2 * 9 * c * co
-        flop = 2 * 9 * c * co * px_l
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / BF16_TENSOR_FLOP_PER_S * 1e3
-        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bytes", b_ms),
-                       ("ops", o_ms), ("bound", max(b_ms, o_ms))):
-            tot[key] += v
-        conv_ms[name] = ms
-        say(f"[time] conv3x3_fused {name} {n_wells}x{h}^2 {c}->{co}: {ms:.4f} ms "
-            f"({flop / ms / 1e9:.1f} TFLOP/s); bound {max(b_ms, o_ms):.4f} ms, "
-            f"{max(b_ms, o_ms) / ms:.1%} of it reached "
-            f"({'bytes' if b_ms >= o_ms else 'operations'}); plain {plain_ms:.3f} ms; "
-            f"F.conv2d bf16 conv only {lib_ms:.4f} ms")
-        del x, wt, kw
+    tot, conv_ms = time_conv_calls(m, conv_calls, n_wells, dev, timed, rehearsal, say)
     say(f"[time] conv3x3_fused, all 16 calls of one forward: {tot['ms']:.3f} ms "
         f"({tot['bound'] / tot['ms']:.1%} of the bound); bound "
         f"{tot['bound']:.3f} ms (sum over calls of max(bytes {tot['bytes']:.3f}, operations "
@@ -2086,9 +2154,6 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     entry(*gn_row)
     entry(*diffuse_row)
     entry(*rank_row)
-
-    if args.compare_with:
-        compare_with(args.compare_with, kernels, conv_ms, say)
 
     # -- 14. mesh: exact sums, two ranks on one card, a one-rank NCCL group -----------------
     # the measurement twice on one well: the same bits (exact int64 sums; float
@@ -2224,7 +2289,143 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     finally:
         dist.destroy_process_group()
 
-    # -- 15. result -----------------------------------------------------------------
+    # -- 15. S2D U-Net ------------------------------------------------------------------
+    # (a) the 8 wells through the JAX plate's U-Net branch as it composes the S2D
+    # route: the stretch, UNetS2D(s2d_params(tree, gray_input=True))(x[..., None],
+    # out_s2d=True), compute_masks_sparse_compact_s2d and the measurement
+    s2d = m.unet_s2d
+    tree_s = m.weights.tree_from_state_dict(m.weights.load_weights())
+    net_s = s2d.UNetS2D(s2d.s2d_params(tree_s, gray_input=True)).to(dev).eval()
+    seg_i = unet_config.seg_channel_index
+
+    def s2d_route(stack_f):
+        """The U-Net plate's stretch, S2D forward, S2D compact tail and
+        measurement on a staged float32 batch: (stretched input, network
+        output, compact masks, measurement)."""
+        xn = m.plate._normalised(stack_f[:, seg_i].contiguous())
+        out = net_s(xn[..., None], out_s2d=True)
+        cm = flows.compute_masks_sparse_compact_s2d(out, cap_u, **tail_kw)
+        meas = m.plate.measure_unet_masks(cm.labels, cm.lab_c, cm.idx, cm.valid, stack_f,
+                                          unet_config.max_cells)
+        return xn, out, cm, meas
+
+    with torch.inference_mode():
+        reset_all_counts(m)
+        xn_s, out_s, cm_s, _ = s2d_route(stack_u)
+        sync()
+        s2d_launches = all_counts(m)
+        s2d_cells = [int(c) for c in cm_s.lab_c.amax(1)]
+        say(f"[s2d] the U-Net plate's S2D route on {n_wells} wells of {size}^2 (stretch, "
+            f"UNetS2D gray input, out_s2d, compute_masks_sparse_compact_s2d, measure_unet_masks): "
+            f"launches {s2d_launches}; cells per well {s2d_cells}; ok {cm_s.ok.tolist()}")
+        if tuple(out_s.shape) != (n_wells, size // 2, size // 2, 12) or not bool(
+                torch.isfinite(out_s).all()):
+            raise RuntimeError(f"S2D head output not finite or of shape {tuple(out_s.shape)}")
+        if not rehearsal and (s2d_launches["conv3x3_fused"] != 13 or s2d_launches["lane_moments"] != 2
+                              or s2d_launches["diffuse"] < 1):
+            raise RuntimeError(f"the S2D route did not launch 13 conv, 2 moments and >= 1 "
+                               f"diffusion kernels: {s2d_launches}")
+        if not bool(cm_s.ok.all()) or not all(lo <= c <= hi for c in s2d_cells):
+            raise RuntimeError(f"S2D route: ok {cm_s.ok.tolist()}, implausible cell counts "
+                               f"{s2d_cells} for {blobs} blobs per well")
+
+        # (b) the planar head is the S2D head permuted, and the S2D compact tail
+        # equals the planar compact tail on the permuted tensor, bit for bit
+        planar_s = net_s(xn_s[..., None])
+        same_head = torch.equal(s2d._d2s(out_s, 3), planar_s)
+        cm_perm = flows.compute_masks_sparse_compact(planar_s, cap_u, **tail_kw)
+        same_tail = {name: torch.equal(a, b) for name, a, b in zip(cm_s._fields, cm_s, cm_perm)}
+        say(f"[s2d] _d2s(out_s2d) equals the planar-head output bit for bit: {same_head}; the S2D "
+            f"compact tail equals the planar compact tail on the permuted tensor bit for bit: "
+            f"{json.dumps(same_tail)}")
+        if not same_head or not all(same_tail.values()):
+            raise RuntimeError("the S2D head or compact tail differs from the planar route's")
+        del planar_s, cm_perm
+
+        # (c) well 0's S2D forward on the card against the CPU (bf16 gate), and
+        # the S2D labels against the planar plate's of phase 7
+        net_s_cpu = s2d.UNetS2D(s2d.s2d_params(tree_s, gray_input=True)).eval()
+        out_s_cpu = net_s_cpu(xn_s[:1, ..., None].cpu(), out_s2d=True)
+        scale = float(out_s_cpu.abs().max())
+        d = (out_s[:1].cpu() - out_s_cpu).abs()
+        say(f"[s2d] well 0 S2D network output card vs CPU: mean abs {float(d.mean()):.4g}, max abs "
+            f"{float(d.max()):.4g}, output scale {scale:.4g} (limits 0.006 and 0.05 of scale)")
+        if float(d.mean()) > 0.006 * scale or float(d.max()) > 0.05 * scale:
+            raise RuntimeError("the S2D network output on the card differs from the CPU beyond "
+                               "tolerance")
+        del out_s_cpu, net_s_cpu, d
+        agree = [float((a == b).float().mean()) for a, b in zip(cm_s.labels, cm_u.labels)]
+        fg_agree = [float(((a > 0) == (b > 0)).float().mean()) for a, b in zip(cm_s.labels, cm_u.labels)]
+        planar_cells = [int(c) for c in cm_u.lab_c.amax(1)]
+        say(f"[s2d] S2D labels against the planar plate's (phase 7), per well: pixels agreeing "
+            f"{[round(a, 5) for a in agree]}, foreground agreeing {[round(a, 5) for a in fg_agree]}, "
+            f"cells S2D {s2d_cells} vs planar {planar_cells} (well 0's limits: 0.99 and +-1)")
+        if agree[0] < 0.99 or abs(s2d_cells[0] - planar_cells[0]) > 1:
+            raise RuntimeError("well 0's S2D labels differ from the planar plate's beyond tolerance")
+
+        # (d) ms per batch of 8: the two forwards in the order planar, S2D, S2D,
+        # planar, with each one's peak memory; the S2D route's other parts once,
+        # beside phase 13's planar parts
+        x_gray, x_rgb = xn_s[..., None], xn_s[..., None].expand(-1, -1, -1, 3)
+        forwards = {"planar": lambda: net_u(x_rgb), "s2d": lambda: net_s(x_gray, out_s2d=True)}
+        fwd_ms = {"planar": [], "s2d": []}
+        peak_gib = {}
+        for name in ("planar", "s2d", "s2d", "planar"):
+            if not rehearsal:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            fwd_ms[name].append(round(time_host(forwards[name], seg_reps, sync), 3))
+            if not rehearsal:
+                peak_gib[name] = round((torch.cuda.max_memory_allocated() - base) / 2**30, 3)
+        s2d_parts = {
+            "compact tail": time_host(
+                lambda: flows.compute_masks_sparse_compact_s2d(out_s, cap_u, **tail_kw), seg_reps,
+                sync),
+            "measure": time_host(lambda: m.plate.measure_unet_masks(
+                cm_s.labels, cm_s.lab_c, cm_s.idx, cm_s.valid, stack_u, unet_config.max_cells),
+                seg_reps, sync),
+            "program": time_host(lambda: s2d_route(stack_u), seg_reps, sync),
+        }
+        say(f"[time] U-Net plate forward, ms per batch of {n_wells} {size}^2 wells (order planar, "
+            f"S2D, S2D, planar; host clock + synchronize): {json.dumps(fwd_ms)}; peak memory of "
+            f"each forward above what was allocated, GiB: {json.dumps(peak_gib)}; the S2D route's "
+            f"parts, ms per batch ('program' is stretch + forward + compact tail + measure): "
+            f"{json.dumps({k: round(v, 3) for k, v in s2d_parts.items()})}, beside phase 13's "
+            f"planar well program {unet_ms:.2f} ms and parts "
+            f"{json.dumps({k: round(v, 3) for k, v in uparts.items()})}; card: {smi}")
+        net_s3 = s2d.UNetS2D(s2d.s2d_params(tree_s)).to(dev).eval()
+        seg_fwd = {"planar": [], "s2d": []}
+        for name in ("planar", "s2d", "s2d", "planar"):
+            fn = (lambda: model.network(x_seg)) if name == "planar" else (lambda: net_s3(x_seg))
+            seg_fwd[name].append(round(time_host(fn, seg_reps, sync), 3))
+        d3 = (net_s3(x_seg[:1]) - model.network(x_seg[:1])).abs()
+        say(f"[time] batch_segment's forward on its 3-channel input {tuple(x_seg.shape)}, ms per "
+            f"batch (order planar, S2D, S2D, planar): {json.dumps(seg_fwd)}; image 0 S2D vs planar "
+            f"max abs {float(d3.max()):.4g}; card: {smi}")
+        del net_s3, d3
+
+    # (e) the S2D forward's 13 conv calls, each at its shape beside its bound and
+    # cuDNN's conv, and lane_moments at the two stem outputs
+    tot_s, conv_ms_s = time_conv_calls(m, s2d_conv_shapes(n_wells, size), n_wells, dev, timed,
+                                       rehearsal, say)
+    conv_ms.update(conv_ms_s)
+    say(f"[time] conv3x3_fused, all 13 calls of one S2D forward: {tot_s['ms']:.3f} ms "
+        f"({tot_s['bound'] / tot_s['ms']:.1%} of the bound); bound {tot_s['bound']:.3f} ms (sum "
+        f"over calls of max(bytes {tot_s['bytes']:.3f}, operations {tot_s['ops']:.3f})); plain "
+        f"{tot_s['plain']:.3f} ms; F.conv2d conv only {tot_s['lib']:.3f} ms; beside the planar "
+        f"16 calls' {tot['ms']:.3f} ms (bound {tot['bound']:.3f}); card: {smi}")
+    for shape in ((n_wells, size // 2, size // 2, 128), (n_wells, size // 4, size // 4, 256)):
+        xg = torch.randn(shape, device=dev).to(torch.bfloat16)
+        ms, plain_ms = timed(lambda: gn_cuda.lane_moments(xg), lambda: gn_cuda.lane_moments_plain(xg))
+        b_ms = xg.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        say(f"[time] lane_moments {shape} (an S2D stem's output): {ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"(bytes), {b_ms / ms:.1%} of it reached; plain {plain_ms:.4f} ms")
+        del xg
+
+    if args.compare_with:
+        compare_with(args.compare_with, kernels, conv_ms, say)
+
+    # -- 16. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

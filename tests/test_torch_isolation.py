@@ -54,6 +54,7 @@ import arcadia_microscopy_tools_tpu_torch.microplate
 import arcadia_microscopy_tools_tpu_torch.microscopy
 import arcadia_microscopy_tools_tpu_torch.nikon
 import arcadia_microscopy_tools_tpu_torch.models.flows
+import arcadia_microscopy_tools_tpu_torch.models.unet_s2d
 import arcadia_microscopy_tools_tpu_torch.parallel.plate
 import arcadia_microscopy_tools_tpu_torch.parallel.mesh
 import arcadia_microscopy_tools_tpu_torch.parallel.collectives
