@@ -30,6 +30,7 @@ from ..exceptions import SegmentationWarning
 from ..parallel.plate import resolve_device
 from ..typing import Float64Array, Int64Array
 from ..utils import get_tqdm
+from ..utils.profiling import StageTimer
 from .flows import compute_masks
 from .unet import UNet, UNetConfig
 from .weights import DEFAULT_WEIGHTS, load_weights
@@ -75,6 +76,12 @@ class SegmentationModel:
             otherwise seeded weights (identical pipeline, untrained network).
             A directory (the JAX package's orbax checkpoint) is a ValueError.
         seed: seed of the torch generator for seeded weights.
+        stages: host seconds and calls of each step over the model's life,
+            each a named profiler range: "segment.prepare" (one
+            `_prepare_image`), "segment.upload" (stack and copy to the
+            device), "segment.forward", "segment.masks" (`compute_masks`),
+            "segment.readback" (labels to the host) and "segment.finish"
+            (upscale and int64 cast of one mask).
     """
 
     default_cell_diameter_px: float = 30
@@ -89,6 +96,7 @@ class SegmentationModel:
     min_size: int = 15
     _network: UNet | None = field(default=None, init=False, repr=False)
     _config: UNetConfig = field(default_factory=UNetConfig, init=False, repr=False)
+    stages: StageTimer = field(default_factory=StageTimer, init=False, repr=False)
 
     def __post_init__(self) -> None:
         if self.checkpoint_path is not None and Path(self.checkpoint_path).is_dir():
@@ -214,18 +222,22 @@ class SegmentationModel:
     def _labels_of(self, images: list[np.ndarray], params: SegmentationParams) -> np.ndarray:
         """One device batch: (N, Hp, Wp, 3) prepared images -> (N, Hp, Wp)
         int32 labels on the host."""
-        x = torch.from_numpy(np.stack(images)).to(self.device)
+        with self.stages.stage("segment.upload"):
+            x = torch.from_numpy(np.stack(images)).to(self.device)
         with torch.inference_mode():
-            out = self.network(x)
-            labels = compute_masks(
-                out,
-                cellprob_threshold=float(params["cellprob_threshold"]),
-                flow_threshold=float(params["flow_threshold"]),
-                niter=self._resolve_niter(params),
-                max_cells=self.max_cells,
-                min_size=self.min_size,
-            )
-        return labels.cpu().numpy()
+            with self.stages.stage("segment.forward"):
+                out = self.network(x)
+            with self.stages.stage("segment.masks"):
+                labels = compute_masks(
+                    out,
+                    cellprob_threshold=float(params["cellprob_threshold"]),
+                    flow_threshold=float(params["flow_threshold"]),
+                    niter=self._resolve_niter(params),
+                    max_cells=self.max_cells,
+                    min_size=self.min_size,
+                )
+        with self.stages.stage("segment.readback"):
+            return labels.cpu().numpy()
 
     def segment(
         self,
@@ -245,11 +257,13 @@ class SegmentationModel:
             cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
         )
         try:
-            image, (h, w), (hs, ws) = self._prepare_image(
-                np.asarray(intensities), self._rescale_factor(resolved)
-            )
+            with self.stages.stage("segment.prepare"):
+                image, (h, w), (hs, ws) = self._prepare_image(
+                    np.asarray(intensities), self._rescale_factor(resolved)
+                )
             labels = self._labels_of([image], resolved)[0]
-            return self._upscale_labels(labels[:hs, :ws], (h, w)).astype(np.int64)
+            with self.stages.stage("segment.finish"):
+                return self._upscale_labels(labels[:hs, :ws], (h, w)).astype(np.int64)
         except ValueError:
             raise
         except Exception as e:  # noqa: BLE001 - mirrors the reference's error wrapping
@@ -287,7 +301,8 @@ class SegmentationModel:
         prepared: dict[tuple[int, int], list] = {}
         for i, intensities in enumerate(intensities_batch):
             try:
-                image, hw, hws = self._prepare_image(np.asarray(intensities), scale)
+                with self.stages.stage("segment.prepare"):
+                    image, hw, hws = self._prepare_image(np.asarray(intensities), scale)
                 prepared.setdefault(image.shape[:2], []).append((i, image, hw, hws))
             except Exception as e:  # noqa: BLE001
                 fail(i, e)
@@ -296,7 +311,8 @@ class SegmentationModel:
 
         def store(i: int, labels: np.ndarray, hw, hws) -> None:
             hs, ws = hws
-            masks[i] = self._upscale_labels(labels[:hs, :ws], hw).astype(np.int64)
+            with self.stages.stage("segment.finish"):
+                masks[i] = self._upscale_labels(labels[:hs, :ws], hw).astype(np.int64)
 
         for group in prepared.values():
             for start in range(0, len(group), bs):

@@ -41,6 +41,7 @@ The runner keeps the reference's host-side contract:
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -81,6 +82,7 @@ from ..ops.labeling import component_roots
 from ..ops.morphology import binary_opening, disk
 from ..ops.regionprops import measure_compacted, measure_segments, perimeter_classes
 from ..ops.threshold import GLOBAL_METHODS
+from ..utils.profiling import StageTimer
 from .collectives import all_gather, all_reduce, group_rank_size, halo_rows
 from .collectives import all_gather_rows
 from .mesh import (
@@ -179,6 +181,18 @@ class PlateRunConfig:
     niter: int = 200
     fg_cap_fraction: float = 0.0625
     pair_cap: int = 16384
+
+
+# the main thread's steps in `PlateRunner.run`: profiler range -> timings key
+_RUN_SPANS = {
+    "plate.fetch_wait": "fetch_wait_s",
+    "plate.stage": "stage_s",
+    "plate.h2d": "h2d_s",
+    "plate.launch": "launch_s",
+    "plate.readback": "readback_s",
+    "plate.gather": "gather_s",
+    "plate.assemble": "assemble_s",
+}
 
 
 class PlateResults:
@@ -308,22 +322,26 @@ def _normalised(seg: torch.Tensor, group=None, n: int | None = None) -> torch.Te
     return ((seg - p1) / torch.clamp(p99 - p1, min=1e-6)).clamp(0.0, 1.0)
 
 
-def _unet_masks(seg: torch.Tensor, network, config: PlateRunConfig):
-    """Compact U-Net masks of (B, H, W) float32 frames: the stretch, an edge
-    pad to the U-Net's multiple of 8, the forward on the replicated
-    grayscale (B, H, W, 3) input, the crop, and mask reconstruction in the
-    compact domain with the border filter folded in."""
-    from ..models.flows import compute_masks_sparse_compact
-
+def _unet_forward(seg: torch.Tensor, network) -> torch.Tensor:
+    """The U-Net's (B, H, W, 3) output on (B, H, W) float32 frames: the
+    stretch, an edge pad to the U-Net's multiple of 8, the forward on the
+    replicated grayscale (B, H, W, 3) input, and the crop."""
     _, h, w = seg.shape
     x = _normalised(seg)
     ph, pw = (-h) % 8, (-w) % 8
     if ph or pw:
         x = F.pad(x[:, None], (0, pw, 0, ph), mode="replicate")[:, 0]
-    out = network(x[..., None].expand(-1, -1, -1, 3))
-    del x
+    return network(x[..., None].expand(-1, -1, -1, 3))[:, :h, :w]
+
+
+def _unet_masks(out: torch.Tensor, config: PlateRunConfig):
+    """Compact U-Net masks of the forward's output: mask reconstruction in
+    the compact domain with the border filter folded in."""
+    from ..models.flows import compute_masks_sparse_compact
+
+    _, h, w, _ = out.shape
     return compute_masks_sparse_compact(
-        out[:, :h, :w],
+        out,
         foreground_capacity(config, h, w),
         cellprob_threshold=config.cellprob_threshold,
         flow_threshold=config.flow_threshold,
@@ -674,6 +692,7 @@ def _build_well_program(
     network=None,
     debug_labels: bool = False,
     slab: RowSlab | None = None,
+    stages: StageTimer | None = None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, ...]]:
     """The batched well program: (B, C, H, W) uint16 wells -> packed
     (B, max_cells, 15 + 4 * C_measured) float32 per-cell columns and (B, 3)
@@ -681,8 +700,12 @@ def _build_well_program(
     convergence certificate). The "unet" method needs `network`
     (`unet_network`); `debug_labels` (unet only) also returns its (B, H, W)
     label images. With a `slab` the program takes this rank's rows of each
-    well and returns the whole wells' results."""
+    well and returns the whole wells' results. The single-device program's
+    steps are `stages` (a fresh timer if None): "well.mask", "well.label",
+    "well.compact" (classical) or "well.forward", "well.masks" (unet), then
+    "well.measure" and "well.pack"; each is a named profiler range."""
     _check_supported(config)
+    stages = stages if stages is not None else StageTimer()
     if debug_labels and config.method != "unet":
         raise ValueError("debug_labels is only supported for method='unet'")
     seg_idx = config.seg_channel_index
@@ -695,31 +718,40 @@ def _build_well_program(
     def classical(img: torch.Tensor, stack: torch.Tensor):
         if slab is not None:
             return _classical_rows(img, stack, config, slab)
-        seg_img = to_float(img[:, seg_idx])
-        h, w = seg_img.shape[-2:]
-        if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
-            mask = fused_classical_mask(
-                seg_img,
-                low_sigma=config.low_sigma,
-                high_sigma=config.high_sigma,
-                percentile_range=(0.5, 99.9),
-                method=config.threshold_method,
-            )
-        else:  # per well: the percentiles and the threshold are per image
-            mask = torch.stack([_staged_mask(frame, config) for frame in seg_img])
-        roots, converged = component_roots(mask, pair_cap=config.pair_cap)
-        comp = compact_by_root(roots, foreground_capacity(config, h, w))
-        props, stats = measure_compacted(comp.seg, comp.idx, roots, stack, config.max_cells, w)
+        h, w = img.shape[-2:]
+        with stages.stage("well.mask"):
+            seg_img = to_float(img[:, seg_idx])
+            if config.threshold_method in HIST_THRESHOLD_METHODS and config.opening_radius == 0:
+                mask = fused_classical_mask(
+                    seg_img,
+                    low_sigma=config.low_sigma,
+                    high_sigma=config.high_sigma,
+                    percentile_range=(0.5, 99.9),
+                    method=config.threshold_method,
+                )
+            else:  # per well: the percentiles and the threshold are per image
+                mask = torch.stack([_staged_mask(frame, config) for frame in seg_img])
+        with stages.stage("well.label"):
+            roots, converged = component_roots(mask, pair_cap=config.pair_cap)
+        with stages.stage("well.compact"):
+            comp = compact_by_root(roots, foreground_capacity(config, h, w))
+        with stages.stage("well.measure"):
+            props, stats = measure_compacted(comp.seg, comp.idx, roots, stack, config.max_cells, w)
         health = (comp.num_components, comp.overflow, converged)
         return props, stats, health, None
 
     def unet(img: torch.Tensor, stack: torch.Tensor):
         if slab is not None:
             return _unet_rows(img, stack, config, network, slab)
-        cm = _unet_masks(img[:, seg_idx].to(torch.float32), network, config)
-        props, stats = measure_unet_masks(
-            cm.labels, cm.lab_c, cm.idx, cm.valid, stack, config.max_cells
-        )
+        with stages.stage("well.forward"):
+            out = _unet_forward(img[:, seg_idx].to(torch.float32), network)
+        with stages.stage("well.masks"):
+            cm = _unet_masks(out, config)
+        del out
+        with stages.stage("well.measure"):
+            props, stats = measure_unet_masks(
+                cm.labels, cm.lab_c, cm.idx, cm.valid, stack, config.max_cells
+            )
         # the largest label; padding slots hold 0
         health = (cm.lab_c.amax(1), ~cm.ok, torch.ones_like(cm.ok))
         return props, stats, health, cm.labels
@@ -732,12 +764,13 @@ def _build_well_program(
         stack = wide[:, list(measure_idx)]
         method = classical if config.method == "classical" else unet
         props, stats, health, labels = method(img, stack)
-        columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
-        for k in range(len(measure_idx)):
-            for stat in _INTENSITY_STATS:
-                columns.append(stats[k][stat].to(torch.float32))
-        packed = torch.stack(columns, -1)
-        health = torch.stack([h.to(torch.int32) for h in health], -1)
+        with stages.stage("well.pack"):
+            columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
+            for k in range(len(measure_idx)):
+                for stat in _INTENSITY_STATS:
+                    columns.append(stats[k][stat].to(torch.float32))
+            packed = torch.stack(columns, -1)
+            health = torch.stack([h.to(torch.int32) for h in health], -1)
         return (packed, health, labels) if debug_labels else (packed, health)
 
     return well_fn
@@ -1026,15 +1059,32 @@ class PlateRunner:
 
         Returns:
             PlateResults with one table per well (None for failed wells).
+            Its `timings` are host seconds and counts: the main thread's
+            steps, each a named profiler range ("plate.fetch_wait" ->
+            `fetch_wait_s`, "plate.stage" -> `stage_s`, "plate.h2d" ->
+            `h2d_s`, "plate.launch" -> `launch_s`, "plate.readback" ->
+            `readback_s`, "plate.gather" -> `gather_s`, "plate.assemble" ->
+            `assemble_s`, all inside "plate.run"), and the prefetch workers'
+            `decode_s`, `decode_cpu_s`, `decode_wells`, with
+            `capacity_retries`.
         """
+        stages = StageTimer()
+        with stages.stage("plate.run"):
+            tables, timings = self._run(layout, image_source, channels, show_progress, prefetch,
+                                        max_inflight, stages)
+        for span, key in _RUN_SPANS.items():
+            timings[key] = stages.totals.get(span, 0.0)
+        return PlateResults(tables, timings)
+
+    def _run(self, layout, image_source, channels, show_progress, prefetch, max_inflight,
+             stages: StageTimer) -> tuple[dict, dict]:
+        """`run`'s body: the tables and the prefetch workers' counters."""
         if prefetch is None:
             prefetch = os.cpu_count() or 1
         timings = {
             "decode_s": 0.0,
             "decode_cpu_s": 0.0,
             "decode_wells": 0.0,
-            "device_s": 0.0,
-            "assemble_s": 0.0,
             "capacity_retries": 0.0,
         }
         shard = self._input_sharding()
@@ -1078,13 +1128,17 @@ class PlateRunner:
         ) -> dict | None:
             """Stage this rank's share of one batch of same-shape wells and
             run the well program."""
-            t0 = time.time()
+            ordinal = f"batch {next(batch_no)}"
             try:
                 rows, slab = self._slab(*images[0].shape[-2:])
-                batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
-                staged = torch.from_numpy(batch).to(self.device)
-                program = _build_well_program(config, staged.shape[1], self.network, slab=slab)
-                packed, health = program(staged)
+                with stages.stage("plate.stage", args=ordinal):
+                    batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
+                with stages.stage("plate.h2d", args=ordinal):
+                    staged = torch.from_numpy(batch).to(self.device)
+                with stages.stage("plate.launch", args=ordinal):
+                    program = _build_well_program(config, staged.shape[1], self.network,
+                                                  slab=slab, stages=stages)
+                    packed, health = program(staged)
             except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
                 if spatial:  # the other slabs of these wells wait in its collectives
                     raise
@@ -1095,9 +1149,8 @@ class PlateRunner:
                     stacklevel=3,
                 )
                 return {"failed": ok_ids}
-            finally:
-                timings["device_s"] += time.time() - t0
             return {
+                "ordinal": ordinal,
                 "images": images,
                 "ok_ids": ok_ids,
                 "config": config,
@@ -1107,6 +1160,7 @@ class PlateRunner:
                 "image_shape": tuple(images[0].shape[-2:]),
             }
 
+        batch_no = itertools.count()  # dispatches of this run, named in its ranges
         retry_ids: list[str] = []
         retry_images: dict[str, np.ndarray] = {}
 
@@ -1114,7 +1168,6 @@ class PlateRunner:
             """Read this rank's dispatched batches back, gather every rank's
             per-well results and turn them into tables (the same on every
             rank)."""
-            t0 = time.time()
             entries: list[tuple[str, tuple | None]] = [(w, None) for w in failed]
             owned: dict[str, np.ndarray] = {}
             for rec in recs:
@@ -1122,8 +1175,9 @@ class PlateRunner:
                     entries += [(w, None) for w in rec["failed"]]
                     continue
                 try:
-                    packed_h = rec["packed"].cpu().numpy()
-                    health_h = rec["health"].cpu().numpy()
+                    with stages.stage("plate.readback", args=rec["ordinal"]):
+                        packed_h = rec["packed"].cpu().numpy()
+                        health_h = rec["health"].cpu().numpy()
                 except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
                     logger.exception("device batch failed for wells %s", rec["ok_ids"])
                     warnings.warn(
@@ -1138,42 +1192,42 @@ class PlateRunner:
                     entries.append((well_id, (packed_h[i], health_h[i], rec["config"],
                                               rec["retryable"], rec["image_shape"])))
             merged: dict[str, tuple | None] = {}
-            for well_id, result in self._gather(entries):  # slabs of one well report alike
+            with stages.stage("plate.gather"):
+                gathered = self._gather(entries)
+            for well_id, result in gathered:  # slabs of one well report alike
                 merged.setdefault(well_id, result)
-            timings["device_s"] += time.time() - t0
-
-            t0 = time.time()
-            for well_id, result in merged.items():
-                if result is None:
-                    tables[well_id] = None
-                    continue
-                packed_row, health_row, config, retryable, image_shape = result
-                measure_idx = (
-                    config.measure_channel_indices
-                    if config.measure_channel_indices is not None
-                    else tuple(range((packed_row.shape[-1] - len(_PROP_COLUMNS))
-                                     // len(_INTENSITY_STATS)))
-                )
-                props_h, intensity_h, health_d = _unpack_outputs(
-                    packed_row[None], health_row[None], measure_idx
-                )
-                problem = self._well_health_problem(health_d, 0, config)
-                if problem is not None:
-                    kind, message = problem
-                    if kind == "capacity" and retryable:
-                        retry_ids.append(well_id)
-                        if well_id in owned:
-                            retry_images[well_id] = owned[well_id]
-                        timings["capacity_retries"] += 1
+            with stages.stage("plate.assemble"):
+                for well_id, result in merged.items():
+                    if result is None:
+                        tables[well_id] = None
                         continue
-                    warnings.warn(f"Well {well_id}: {message}", SegmentationWarning, stacklevel=2)
-                    tables[well_id] = None
-                    continue
-                table = self._results_to_table(props_h, intensity_h, channels, 0, image_shape)
-                tables[well_id] = table
-                if lead:
-                    self._record_well(manifest, well_id, table)
-            timings["assemble_s"] += time.time() - t0
+                    packed_row, health_row, config, retryable, image_shape = result
+                    measure_idx = (
+                        config.measure_channel_indices
+                        if config.measure_channel_indices is not None
+                        else tuple(range((packed_row.shape[-1] - len(_PROP_COLUMNS))
+                                         // len(_INTENSITY_STATS)))
+                    )
+                    props_h, intensity_h, health_d = _unpack_outputs(
+                        packed_row[None], health_row[None], measure_idx
+                    )
+                    problem = self._well_health_problem(health_d, 0, config)
+                    if problem is not None:
+                        kind, message = problem
+                        if kind == "capacity" and retryable:
+                            retry_ids.append(well_id)
+                            if well_id in owned:
+                                retry_images[well_id] = owned[well_id]
+                            timings["capacity_retries"] += 1
+                            continue
+                        warnings.warn(f"Well {well_id}: {message}", SegmentationWarning,
+                                      stacklevel=2)
+                        tables[well_id] = None
+                        continue
+                    table = self._results_to_table(props_h, intensity_h, channels, 0, image_shape)
+                    tables[well_id] = table
+                    if lead:
+                        self._record_well(manifest, well_id, table)
 
         def dispatch_by_shape(images, ok_ids, config, retryable, chunk: int) -> list[dict]:
             """Dispatch wells grouped by image shape (a well whose shape
@@ -1234,7 +1288,8 @@ class PlateRunner:
                     decoding = deque(pool.submit(load_batch, b) for b in batches[:prefetch])
                     next_idx = min(prefetch, len(batches))
                     while decoding:
-                        loaded = decoding.popleft().result()
+                        with stages.stage("plate.fetch_wait"):
+                            loaded = decoding.popleft().result()
                         if next_idx < len(batches):
                             decoding.append(pool.submit(load_batch, batches[next_idx]))
                             next_idx += 1
@@ -1243,7 +1298,9 @@ class PlateRunner:
                             progress.update(1)
             else:
                 for batch_ids in batches:
-                    submit(load_batch(batch_ids), inflight)
+                    with stages.stage("plate.fetch_wait"):
+                        loaded = load_batch(batch_ids)
+                    submit(loaded, inflight)
                     if progress is not None:
                         progress.update(1)
         finally:
@@ -1263,7 +1320,7 @@ class PlateRunner:
             images = [retry_images.pop(w) for w in current]
             drain(dispatch_by_shape(images, current, esc, level < 2, batch_size), [])
 
-        return PlateResults(tables, timings)
+        return tables, timings
 
     def _agree_on_slabs(self, images, ok_ids, failed):
         """On a spatial mesh the ranks of a space group decode the same

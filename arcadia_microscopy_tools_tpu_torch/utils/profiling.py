@@ -3,7 +3,10 @@
 Counterpart of `arcadia_microscopy_tools_tpu/utils/profiling.py`: a
 per-stage wall-clock timer that can wait for the CUDA device, and a
 `torch.profiler` trace of a block of work, written as a Chrome trace
-(readable in Perfetto).
+(readable in Perfetto). Every stage of a `StageTimer` is also a named
+`torch.profiler.record_function` range, so any profiler trace taken around
+the program names its host time by stage; with no profiler active a range
+costs only the profiler's check.
 """
 
 from __future__ import annotations
@@ -50,22 +53,32 @@ class StageTimer:
 
     `block` is any tensor or nest of tensors (lists, tuples, mappings); at
     the end of the stage, each CUDA device they lie on is synchronised.
+
+    Each stage is a `torch.profiler.record_function(name, args)` range that
+    closes after that wait. `args` (a string, such as "batch 3") also names
+    a zero-length range "name (args)" at the stage's start, which a Chrome
+    trace shows (it drops a range's own args), so the stages of one item
+    can be joined in the trace.
     """
 
     totals: dict[str, float] = field(default_factory=dict)
     counts: dict[str, int] = field(default_factory=dict)
 
     @contextlib.contextmanager
-    def stage(self, name: str, block=None):
+    def stage(self, name: str, block=None, args: str | None = None):
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            for device in _cuda_devices(block):
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        with torch.profiler.record_function(name, args):
+            if args is not None:
+                with torch.profiler.record_function(f"{name} ({args})"):
+                    pass
+            try:
+                yield
+            finally:
+                for device in _cuda_devices(block):
+                    torch.cuda.synchronize(device)
+                dt = time.perf_counter() - t0
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> str:
         lines = []

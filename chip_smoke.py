@@ -1554,9 +1554,9 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         say(f"[decode] {name}: PlateRunner.run from ND2 files, {n_wells} wells in {wall:.3f} s, "
             f"{n_wells / wall:.3f} wells/s including decode (second run; one batch of "
             f"{n_wells}, decoded by one prefetch worker); decode {decode_ms:.2f} ms per well "
-            f"wall, {decode_cpu_ms:.2f} ms thread CPU; the runner's device_s "
-            f"{res.timings['device_s'] * 1e3:.1f} ms (staging, program, read back), assemble_s "
-            f"{res.timings['assemble_s'] * 1e3:.1f} ms (tables); from host arrays "
+            f"wall, {decode_cpu_ms:.2f} ms thread CPU; the runner's main thread "
+            + ", ".join(f"{k} {res.timings[k] * 1e3:.1f} ms" for k in m.plate._RUN_SPANS.values())
+            + "; from host arrays "
             f"{host_wall:.3f} s, {n_wells / host_wall:.3f} wells/s; planarize per frame "
             f"{route}; cells per well {got}")
         if res.failed_wells or got != want:

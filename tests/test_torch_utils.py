@@ -47,6 +47,25 @@ class TestStageTimer:
             pass
         assert timer.totals["device"] > 0
 
+    def test_stage_is_a_named_profiler_range(self, tmp_path):
+        """Each stage is a `user_annotation` of its name in a profiler trace,
+        with a zero-length one that carries `args`; totals and counts are
+        kept as without a profiler."""
+        timer = StageTimer()
+        with device_trace(tmp_path):
+            with timer.stage("outer"):
+                with timer.stage("inner", args="batch 3"):
+                    torch.ones((8, 8)).sum()
+        events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+        ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+        assert {"outer", "inner", "inner (batch 3)"} <= set(ranges)
+        outer, inner, marker = ranges["outer"], ranges["inner"], ranges["inner (batch 3)"]
+        assert outer["ts"] <= inner["ts"] <= marker["ts"]
+        assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+        assert timer.counts == {"outer": 1, "inner": 1}
+        assert set(timer.totals) == {"outer", "inner"}
+        assert timer.totals["outer"] >= timer.totals["inner"] > 0
+
     def test_dump(self, tmp_path):
         timer = StageTimer()
         with timer.stage("x"):
