@@ -9,9 +9,14 @@ of 16), and `batch_segment`'s per-image failure isolation
 (SegmentationWarning and a None placeholder, indices preserved).
 
 Underneath, a device batch runs the PyTorch U-Net (models/unet.py) and the
-batched mask reconstruction (models/flows.py). The model runs on the CUDA
-card unless constructed with `device="cpu"`, which runs the kernels' plain
-PyTorch versions; without a card and without that choice it raises.
+batched mask reconstruction (models/flows.py). An image whose expected
+diameter needs no zoom (scale 1) is copied to the device as given and its
+chunk stretched there (models/stretch_cuda.py, the same values as the numpy
+`_prepare_image`); an image that needs a zoom is prepared on the host by
+`_prepare_image`, since the zoom has no device counterpart. The model runs
+on the CUDA card unless constructed with `device="cpu"`, which runs the
+kernels' plain PyTorch versions; without a card and without that choice it
+raises.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..typing import Float64Array, Int64Array
 from ..utils import get_tqdm
 from ..utils.profiling import StageTimer
 from .flows import compute_masks
+from .stretch_cuda import percentile_stretch
 from .unet import UNet, UNetConfig
 from .weights import DEFAULT_WEIGHTS, load_weights
 
@@ -40,6 +46,24 @@ __all__ = ["SegmentationModel", "SegmentationParams", "find_best_available_devic
 logger = logging.getLogger(__name__)
 
 _DOWNSAMPLE_MULTIPLE = 16  # pad H, W to this multiple for the U-Net
+# dtypes copied to the device as given; any other is cast to float32 on the host
+_DEVICE_DTYPES = (np.dtype(np.float64), np.dtype(np.float32), np.dtype(np.uint16))
+
+
+def _needs_zoom(scale: float) -> bool:
+    """Whether the expected diameter calls for a zoom (`_prepare_image`)."""
+    return abs(scale - 1.0) > 1e-3
+
+
+@dataclass(frozen=True)
+class _Staged:
+    """One image of a call, checked and grouped, not yet prepared."""
+
+    index: int  # in the call
+    array: np.ndarray  # ([C], H, W) as the caller gave it
+    hw: tuple[int, int]  # original size
+    hws: tuple[int, int]  # after the zoom
+    padded: tuple[int, int]  # (Hp, Wp), the U-Net's input size
 
 
 class SegmentationParams(TypedDict):
@@ -77,9 +101,13 @@ class SegmentationModel:
             A directory (the JAX package's orbax checkpoint) is a ValueError.
         seed: seed of the torch generator for seeded weights.
         stages: host seconds and calls of each step over the model's life,
-            each a named profiler range: "segment.prepare" (one
-            `_prepare_image`), "segment.upload" (stack and copy to the
-            device), "segment.forward", "segment.masks" (`compute_masks`),
+            each a named profiler range: "segment.prepare" (one image's
+            host work before its chunk's forward: the copy to the device,
+            or on the host route its `_prepare_image`, inside
+            "segment.prepare.host", which opens for no other image),
+            "segment.stretch" (a chunk's stretch on the device, enqueued),
+            "segment.upload" (the host route's stack and copy of a chunk),
+            "segment.forward", "segment.masks" (`compute_masks`),
             "segment.readback" (labels to the host) and "segment.finish"
             (upscale and int64 cast of one mask).
     """
@@ -189,7 +217,7 @@ class SegmentationModel:
         denom = np.maximum(p99 - p1, 1e-6)
         x = np.clip((x - p1) / denom, 0.0, 1.0)
 
-        if abs(scale - 1.0) > 1e-3:
+        if _needs_zoom(scale):
             from scipy.ndimage import zoom
 
             x = zoom(x, (1.0, scale, scale), order=1)
@@ -219,11 +247,54 @@ class SegmentationModel:
             return int(params["niter"])
         return 200
 
-    def _labels_of(self, images: list[np.ndarray], params: SegmentationParams) -> np.ndarray:
+    def _staged(self, index: int, intensities, scale: float) -> _Staged:
+        """Check one image of a call and find its padded shape from (h, w)
+        and the scale alone, without preparing it."""
+        x = np.asarray(intensities)
+        if x.ndim not in (2, 3):
+            raise ValueError(f"Expected ([C], H, W) input, got shape {x.shape}")
+        if 0 in x.shape:
+            raise ValueError(f"Expected a non-empty ([C], H, W) image, got shape {x.shape}")
+        h, w = x.shape[-2:]
+        # scipy.ndimage.zoom's output shape
+        hs, ws = (round(h * scale), round(w * scale)) if _needs_zoom(scale) else (h, w)
+        padded = (hs + (-hs) % _DOWNSAMPLE_MULTIPLE, ws + (-ws) % _DOWNSAMPLE_MULTIPLE)
+        return _Staged(index, x, (h, w), (hs, ws), padded)
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """One image's first three planes on the device, in the caller's
+        float64, float32 or uint16 (any other dtype cast to float32 here)."""
+        if x.dtype not in _DEVICE_DTYPES:
+            x = np.asarray(x, dtype=np.float32)
+        x = np.ascontiguousarray((x[None] if x.ndim == 2 else x)[:3])
+        return torch.from_numpy(x).to(self.device)
+
+    def _prepared(self, chunk: list[_Staged], scale: float) -> torch.Tensor:
+        """The (N, Hp, Wp, 3) float32 U-Net input of one chunk of images of
+        one padded shape, on the device. Without a zoom each image is copied
+        as it is and the chunk stretched on the device (`percentile_stretch`,
+        the same values as `_prepare_image`); with one each image goes
+        through the numpy `_prepare_image`."""
+        if _needs_zoom(scale):
+            images = []
+            for item in chunk:
+                with self.stages.stage("segment.prepare"):
+                    with self.stages.stage("segment.prepare.host"):
+                        images.append(self._prepare_image(item.array, scale)[0])
+                if images[-1].shape[:2] != item.padded:
+                    raise RuntimeError(f"prepared {images[-1].shape[:2]}, not {item.padded}")
+            with self.stages.stage("segment.upload"):
+                return torch.from_numpy(np.stack(images)).to(self.device)
+        planes = []
+        for item in chunk:
+            with self.stages.stage("segment.prepare"):
+                planes.append(self._upload(item.array))
+        with self.stages.stage("segment.stretch"):
+            return percentile_stretch(planes, *chunk[0].padded)
+
+    def _labels_of(self, x: torch.Tensor, params: SegmentationParams) -> np.ndarray:
         """One device batch: (N, Hp, Wp, 3) prepared images -> (N, Hp, Wp)
         int32 labels on the host."""
-        with self.stages.stage("segment.upload"):
-            x = torch.from_numpy(np.stack(images)).to(self.device)
         with torch.inference_mode():
             with self.stages.stage("segment.forward"):
                 out = self.network(x)
@@ -238,6 +309,19 @@ class SegmentationModel:
                 )
         with self.stages.stage("segment.readback"):
             return labels.cpu().numpy()
+
+    def _segment_chunk(
+        self, chunk: list[_Staged], scale: float, params: SegmentationParams
+    ) -> list[Int64Array]:
+        """Prepare, segment and finish one chunk: its int64 label images at
+        the original sizes. Only this chunk's input is on the device."""
+        labels = self._labels_of(self._prepared(chunk, scale), params)
+        masks = []
+        for k, item in enumerate(chunk):
+            hs, ws = item.hws
+            with self.stages.stage("segment.finish"):
+                masks.append(self._upscale_labels(labels[k][:hs, :ws], item.hw).astype(np.int64))
+        return masks
 
     def segment(
         self,
@@ -256,14 +340,9 @@ class SegmentationModel:
         resolved = self._resolve_and_validate_parameters(
             cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
         )
+        scale = self._rescale_factor(resolved)
         try:
-            with self.stages.stage("segment.prepare"):
-                image, (h, w), (hs, ws) = self._prepare_image(
-                    np.asarray(intensities), self._rescale_factor(resolved)
-                )
-            labels = self._labels_of([image], resolved)[0]
-            with self.stages.stage("segment.finish"):
-                return self._upscale_labels(labels[:hs, :ws], (h, w)).astype(np.int64)
+            return self._segment_chunk([self._staged(0, intensities, scale)], scale, resolved)[0]
         except ValueError:
             raise
         except Exception as e:  # noqa: BLE001 - mirrors the reference's error wrapping
@@ -282,10 +361,10 @@ class SegmentationModel:
     ) -> list[Int64Array | None]:
         """Segment many images with one set of parameters.
 
-        Images are prepared on the host, grouped by padded shape and run in
-        device batches of `batch_size`. A failed batch is retried image by
-        image; each image that fails emits a SegmentationWarning and leaves
-        None at its index.
+        Images are grouped by padded shape and run in chunks of
+        `batch_size`, each prepared just before its forward. A failed chunk
+        is retried image by image; each image that fails emits a
+        SegmentationWarning and leaves None at its index.
         """
         resolved = self._resolve_and_validate_parameters(
             cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
@@ -298,36 +377,29 @@ class SegmentationModel:
             warnings.warn(f"Segmentation failed on image {i}: {e}", SegmentationWarning, stacklevel=3)
 
         scale = self._rescale_factor(resolved)
-        prepared: dict[tuple[int, int], list] = {}
+        groups: dict[tuple[int, int], list[_Staged]] = {}
         for i, intensities in enumerate(intensities_batch):
             try:
-                with self.stages.stage("segment.prepare"):
-                    image, hw, hws = self._prepare_image(np.asarray(intensities), scale)
-                prepared.setdefault(image.shape[:2], []).append((i, image, hw, hws))
+                item = self._staged(i, intensities, scale)
+                groups.setdefault(item.padded, []).append(item)
             except Exception as e:  # noqa: BLE001
                 fail(i, e)
                 if progress is not None:
                     progress.update(1)
 
-        def store(i: int, labels: np.ndarray, hw, hws) -> None:
-            hs, ws = hws
-            with self.stages.stage("segment.finish"):
-                masks[i] = self._upscale_labels(labels[:hs, :ws], hw).astype(np.int64)
-
-        for group in prepared.values():
+        for group in groups.values():
             for start in range(0, len(group), bs):
                 chunk = group[start : start + bs]
                 try:
-                    labels = self._labels_of([img for _, img, _, _ in chunk], resolved)
-                    for k, (i, _, hw, hws) in enumerate(chunk):
-                        store(i, labels[k], hw, hws)
+                    for item, mask in zip(chunk, self._segment_chunk(chunk, scale, resolved)):
+                        masks[item.index] = mask
                 except Exception as e:  # noqa: BLE001
                     logger.debug(f"Batched dispatch failed ({e}); isolating per image")
-                    for i, img, hw, hws in chunk:
+                    for item in chunk:
                         try:
-                            store(i, self._labels_of([img], resolved)[0], hw, hws)
+                            masks[item.index] = self._segment_chunk([item], scale, resolved)[0]
                         except Exception as e1:  # noqa: BLE001
-                            fail(i, e1)
+                            fail(item.index, e1)
                 if progress is not None:
                     progress.update(len(chunk))
 

@@ -12,7 +12,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its lines:
 
 1. device - the card's name and `nvidia-smi` name / power limit;
-2. build - the six CUDA kernels of `csrc/` (five libraries), compiled with
+2. build - the seven CUDA kernels of `csrc/` (six libraries), compiled with
    nvcc for sm_90a, one nvcc per source, all started together, with their
    ptxas reports; beside them the host library of `native/amt_host.cpp`
    (g++; the ND2 planarize);
@@ -47,7 +47,12 @@ Phases, each printing its lines:
    the plain path on the CPU;
 5. segmentation path - 8 synthetic 2048^2 images through
    `SegmentationModel.batch_segment` with the trained weights and its
-   launch counts of all five kernels; the QC diffusion bit-exact against
+   launch counts of all six kernels; the chunk's input, stretched on the
+   card, equal to `_prepare_image`'s stacked (np.array_equal) and the
+   stretch kernel bit-exact against its plain version on it, on its uint16
+   and float32 casts and on a ragged chunk (2 and 3 channels, NaN, +-inf,
+   signed zeros, a constant plane, planes off a 16-byte boundary); the QC
+   diffusion bit-exact against
    its plain version on that run's label images (128, 13 and 1 iterations),
    a ragged crop, and cases that drive its dense branch as well as its cell
    pass (a whole-image label, a label split between far corners, labels
@@ -195,7 +200,8 @@ CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
 # windows bisect on keys read from device memory
 RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
                  (225, "bisection on staged keys"))
-KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select"]
+KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select",
+                    "percentile_stretch"]
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "tests" / "data"
 ND2_CHANNELS = ["DAPI", "FITC", "TRITC", "CY5"]
@@ -297,6 +303,7 @@ def port_modules() -> SimpleNamespace:
         flows,
         flows_cuda,
         gn_cuda,
+        stretch_cuda,
         train,
         unet,
         unet_s2d,
@@ -311,20 +318,20 @@ def port_modules() -> SimpleNamespace:
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
         _build, _native, masks, operations, testing, microplate, microscopy, leica, lif, nd2, nikon,
-        conv_cuda, flows, flows_cuda, gn_cuda, train, unet, unet_s2d, weights,
+        conv_cuda, flows, flows_cuda, gn_cuda, stretch_cuda, train, unet, unet_s2d, weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
         threshold, plate, profiling, blending,
     )}, pkg=pkg)
 
 
 def reset_all_counts(m) -> None:
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda):
         mod.reset_launch_counts()
 
 
 def all_counts(m) -> dict[str, int]:
     out = {}
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda):
         out.update(mod.launch_counts)
     return out
 
@@ -1019,7 +1026,7 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
              masks[:1, :256, 256:512]], 2).contiguous(),
     }
     max_err = {"local_cc": 0.0, "local_resweep": 0.0, "conv3x3_fused": 0.0,
-               "lane_moments": 0.0, "diffuse": 0.0}
+               "lane_moments": 0.0, "diffuse": 0.0, "percentile_stretch": 0.0}
     for conn in (1, 2):
         for name, fg in cases.items():
             got = cc_cuda.local_cc(fg, conn)
@@ -1253,13 +1260,51 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     say(f"[segment] cells per image: {cells} ({seg_blobs} blobs per image)")
     if min(cells) <= 0:
         raise RuntimeError("an image has no cells")
-    seg_kernels = ("local_cc", "local_resweep", "conv3x3_fused", "lane_moments", "diffuse")
+    seg_kernels = ("local_cc", "local_resweep", "conv3x3_fused", "lane_moments", "diffuse",
+                   "percentile_stretch")
     if not rehearsal and min(seg_launches[k] for k in seg_kernels) <= 0:
         raise RuntimeError(f"the segmentation path did not launch every kernel: {seg_launches}")
+    if model.stages.counts.get("segment.prepare.host"):
+        raise RuntimeError("a scale-1 image took the host route")
+
+    # the chunk's input as the call made it, against the numpy route; the
+    # stretch kernel against its plain version bit for bit (NaN against NaN)
+    seg_chunk = [model._staged(i, img, 1.0) for i, img in enumerate(images)]
+    x_seg = model._prepared(seg_chunk, 1.0)
+    prep = [model._prepare_image(img)[0] for img in images]
+    same = np.array_equal(x_seg.cpu().numpy(), np.stack(prep))
+    say(f"[check] the chunk's input stretched on the card equals _prepare_image's stacked: {same}")
+    if not same:
+        raise RuntimeError("the device route's input differs from _prepare_image's")
+    rng_s = np.random.default_rng(19)
+    ragged = [rng_s.normal(100, 10, size=(61, 49)),
+              rng_s.integers(0, 4000, size=(2, 63, 63)).astype(np.uint16),
+              rng_s.normal(size=(3, 49, 63)).astype(np.float32),
+              np.where(rng_s.random((2, 50, 60)) < 0.01, np.nan, rng_s.normal(size=(2, 50, 60))),
+              np.where(rng_s.random((3, 64, 64)) < 0.02, np.inf, rng_s.normal(size=(3, 64, 64))),
+              np.where(rng_s.random((64, 64)) < 0.5, -0.0, 0.0), np.full((64, 40), 7.0)]
+    ragged[4][1, :3] = -np.inf
+    stretch_cases = {
+        "the call's float64 images": ([model._upload(x) for x in images], seg_size, seg_size),
+        "as uint16": ([model._upload(x.astype(np.uint16)) for x in images], seg_size, seg_size),
+        "as float32": ([model._upload(x.astype(np.float32)) for x in images], seg_size, seg_size),
+        "a ragged chunk": ([model._upload(x) for x in ragged], 64, 64),
+    }
+    for name, (srcs, hp, wp) in stretch_cases.items():
+        got = m.stretch_cuda.percentile_stretch(srcs, hp, wp).cpu()
+        want = m.stretch_cuda.percentile_stretch_plain([t.cpu() for t in srcs], hp, wp)
+        nan = torch.isnan(want)
+        exact = torch.equal(torch.isnan(got), nan) and torch.equal(
+            got.masked_fill(nan, 0).view(torch.int32), want.masked_fill(nan, 0).view(torch.int32))
+        err = float((got - want).abs().nan_to_num(0).max())
+        max_err["percentile_stretch"] = max(max_err["percentile_stretch"], 0.0 if exact else err)
+        say(f"[check] percentile_stretch on {name} {tuple(got.shape)}: bit-exact against the "
+            f"plain version {exact}")
+        if not exact:
+            raise RuntimeError(f"percentile_stretch differs from its plain version on {name}")
+    del stretch_cases, got, want
 
     # the run's intermediates: network output, the QC's labels and sources
-    prep = [model._prepare_image(img)[0] for img in images]
-    x_seg = torch.from_numpy(np.stack(prep)).to(dev)
     params = model._resolve_and_validate_parameters(None, None, None, None, None)
     with torch.inference_mode():
         out = model.network(x_seg)
@@ -1868,7 +1913,10 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     seg_ms = time_host(lambda: model.batch_segment(images, show_progress=False), seg_reps, sync)
     with torch.inference_mode():
         parts = {
-            "host prep": time_host(lambda: [model._prepare_image(i) for i in images], seg_reps, sync),
+            "prep (copies and stretch)": time_host(lambda: model._prepared(seg_chunk, 1.0),
+                                                   seg_reps, sync),
+            "numpy prep (_prepare_image, the zoom route)": time_host(
+                lambda: [model._prepare_image(i) for i in images], seg_reps, sync),
             "forward": time_host(lambda: model.network(x_seg), seg_reps, sync),
             "compute_masks": time_host(lambda: flows.compute_masks(
                 out, flow_threshold=float(params["flow_threshold"]), niter=200,
@@ -2072,6 +2120,31 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
               b_ms, o_ms, None, "gn_moments.cu")
     del xg
 
+    # percentile stretch at the segmentation call's chunk: 8 float64 images,
+    # as batch_segment copies them. Bytes: each input byte read once and the
+    # (N, Hp, Wp, 3) float32 batch written once; beside it the algorithm's
+    # bytes, the input read four times (three histogram passes and the
+    # stretch). Operations per value: three key and bin computations and the
+    # stretch's subtract, divide and two compares, ~12
+    srcs_t = [model._upload(x) for x in images]
+    ms, plain_ms = timed(
+        lambda: m.stretch_cuda.percentile_stretch(srcs_t, seg_size, seg_size),
+        lambda: m.stretch_cuda.percentile_stretch_plain(srcs_t, seg_size, seg_size))
+    in_bytes = sum(t.numel() * t.element_size() for t in srcs_t)
+    out_bytes = n_wells * seg_size * seg_size * 3 * 4
+    b_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    alg_ms = (4 * in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    o_ms = sum(t.numel() for t in srcs_t) * 12 / NON_TENSOR_OPS_PER_S * 1e3
+    say(f"[time] percentile_stretch {n_wells} x {seg_size}^2 float64: {ms:.4f} ms; bound "
+        f"{max(b_ms, o_ms):.4f} ms (bytes: input read once, output written once), "
+        f"{max(b_ms, o_ms) / ms:.2%} of it reached; the algorithm's bytes {alg_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; launches on the segmentation path "
+        f"{seg_launches['percentile_stretch']}")
+    stretch_row = ("percentile_stretch", "models/segmentation.py:278",
+                   seg_launches["percentile_stretch"], ms, plain_ms, b_ms, o_ms, None,
+                   "percentile_stretch.cu")
+    del srcs_t
+
     # QC diffusion at the run's labels, 128 iterations. The work depends on
     # the data: 6 operations per foreground pixel and iteration (4 neighbour
     # adds, the scaling and the source add); bytes: every label read and every
@@ -2153,6 +2226,7 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
           tot["plain"], tot["bytes"], tot["ops"], tot["lib"], "conv3x3_fused.cu", tot["bound"])
     entry(*gn_row)
     entry(*diffuse_row)
+    entry(*stretch_row)
     entry(*rank_row)
 
     # -- 14. mesh: exact sums, two ranks on one card, a one-rank NCCL group -----------------

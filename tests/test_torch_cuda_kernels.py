@@ -12,11 +12,18 @@ import pytest
 import torch
 
 from arcadia_microscopy_tools_tpu_torch import SegmentationModel
-from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, flows, flows_cuda, gn_cuda
+from arcadia_microscopy_tools_tpu_torch.models import (
+    conv_cuda,
+    flows,
+    flows_cuda,
+    gn_cuda,
+    stretch_cuda,
+)
 from arcadia_microscopy_tools_tpu_torch.models.weights import DEFAULT_WEIGHTS
 from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, filters, labeling, rank_cuda
 from arcadia_microscopy_tools_tpu_torch.ops.fused import fused_classical_mask
 from arcadia_microscopy_tools_tpu_torch.testing import serpentine, synthetic_wells
+from test_torch_stretch import CASES, _case, _device_input
 
 
 @pytest.fixture
@@ -242,6 +249,60 @@ def test_segmentation_on_the_card_matches_the_cpu(cuda_device):
     card = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device=cuda_device).segment(img)
     cpu = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device="cpu").segment(img)
     assert abs(int(card.max()) - int(cpu.max())) <= 1 and (card == cpu).mean() >= 0.99
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN against a NaN whatever its payload."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(torch.int32), b.masked_fill(nb, 0).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CASES)
+def test_percentile_stretch_matches_plain_bit_for_bit(cuda_device, name):
+    t = _device_input(_case(name))
+    hp, wp = (s + (-s) % 16 for s in t.shape[1:])
+    stretch_cuda.reset_launch_counts()
+    got = stretch_cuda.percentile_stretch([t.to(cuda_device)], hp, wp)
+    torch.cuda.synchronize()
+    assert stretch_cuda.launch_counts == {"percentile_stretch": 1}
+    assert _same_bits(got.cpu(), stretch_cuda.percentile_stretch_plain([t], hp, wp))
+
+
+@pytest.mark.gpu
+def test_percentile_stretch_chunk_matches_prepare_image(cuda_device):
+    """A chunk of mixed dtypes, channels and sizes, planes that start off a
+    16-byte boundary (odd sizes), and two 2048^2 integer-valued images, as
+    the benchmark's segment cell sends: the plain version bit for bit, and
+    `_prepare_image` (np.array_equal)."""
+    rng = np.random.default_rng(7)
+    big = synthetic_wells(2, 1, 2048, 2048, 300, seed=4)[:, 0].astype(np.float64)
+    for xs, hp, wp in (
+        ([rng.normal(100, 10, size=(61, 49)), rng.integers(0, 4000, size=(2, 63, 63)).astype(
+            np.uint16), rng.normal(size=(3, 49, 63)).astype(np.float32),
+          np.where(rng.random((2, 50, 60)) < 0.01, np.nan, rng.normal(size=(2, 50, 60)))], 64, 64),
+        (list(big), 2048, 2048),
+    ):
+        host = [_device_input(x) for x in xs]
+        got = stretch_cuda.percentile_stretch([t.to(cuda_device) for t in host], hp, wp).cpu()
+        assert _same_bits(got, stretch_cuda.percentile_stretch_plain(host, hp, wp))
+        want = np.stack([SegmentationModel._prepare_image(x)[0] for x in xs])
+        assert np.array_equal(got.numpy(), want, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_segmentation_device_route_launches_the_stretch(cuda_device):
+    model = SegmentationModel(checkpoint_path=DEFAULT_WEIGHTS, device=cuda_device)
+    imgs = list(synthetic_wells(3, 1, 128, 128, 6, seed=5)[:, 0].astype(np.float64))
+    stretch_cuda.reset_launch_counts()
+    out = model.batch_segment(imgs, batch_size=2, show_progress=False)
+    assert all(m is not None for m in out)
+    assert stretch_cuda.launch_counts == {"percentile_stretch": 2}
+    assert "segment.prepare.host" not in model.stages.counts
+    model.segment(imgs[0], cell_diameter_px=15)
+    assert stretch_cuda.launch_counts == {"percentile_stretch": 2}
+    assert model.stages.counts["segment.prepare.host"] == 1
 
 
 def _rank_input(kind: str, shape, g, device) -> torch.Tensor:

@@ -182,29 +182,21 @@ class TestSegmentationModelAPI:
         assert out[0] is not None and out[1] is None and out[2] is not None
 
     def test_batch_failure_retries_per_image(self, monkeypatch):
+        """A failed chunk is retried image by image. Image 1 is poisoned by
+        its prepared input (`_prepared`, which every chunk goes through)."""
         model = _cpu_model(max_cells=64)
         imgs = _images(3, 64, 2, seed=6)
         real = model._labels_of
+        poisoned = model._prepared([model._staged(1, imgs[1], 1.0)], 1.0)[0]
 
-        def flaky(images, params):
-            if len(images) > 1:
+        def flaky(x, params):
+            if len(x) > 1:
                 raise RuntimeError("batch failed")
-            if images[0] is flaky.poisoned:
+            if torch.equal(x[0], poisoned):
                 raise RuntimeError("image failed")
-            return real(images, params)
+            return real(x, params)
 
-        flaky.poisoned = None
         monkeypatch.setattr(model, "_labels_of", flaky)
-        prepared = model._prepare_image(imgs[1])[0]
-        orig_prepare = model._prepare_image
-
-        def prepare(x, scale=1.0):
-            out = orig_prepare(x, scale)
-            if np.array_equal(out[0], prepared):
-                flaky.poisoned = out[0]
-            return out
-
-        monkeypatch.setattr(model, "_prepare_image", prepare)
         with pytest.warns(SegmentationWarning, match="image 1"):
             out = model.batch_segment(imgs, num_iterations=10, show_progress=False)
         assert out[0] is not None and out[1] is None and out[2] is not None

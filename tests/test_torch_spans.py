@@ -72,9 +72,10 @@ def test_batch_segment_counts_its_steps(tmp_path):
     assert all(m is not None and m.shape == (64, 64) for m in masks)
     counts = model.stages.counts
     assert counts["segment.prepare"] == 3 and counts["segment.finish"] == 3
-    for step in ("upload", "forward", "masks", "readback"):
+    for step in ("stretch", "forward", "masks", "readback"):
         assert counts[f"segment.{step}"] == 2, step  # batches of 2 and 1
+    assert "segment.upload" not in counts and "segment.prepare.host" not in counts
     assert set(_ranges(tmp_path)) >= {f"segment.{s}" for s in (
-        "prepare", "upload", "forward", "masks", "readback", "finish")}
+        "prepare", "stretch", "forward", "masks", "readback", "finish")}
     model.segment(images[0], num_iterations=10)
     assert model.stages.counts["segment.prepare"] == 4  # cumulative over the model's life
