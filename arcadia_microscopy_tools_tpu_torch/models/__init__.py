@@ -3,7 +3,9 @@ conv and GroupNorm-moments kernels, flow tracking and flow-error QC
 (models/flows.py) on the diffusion kernel, the `SegmentationModel`
 wrapper, synthetic cell images (models/synthetic.py), the trainer
 (models/train.py) and the space-to-depth forward (models/unet_s2d.py;
-neither imported here).
+neither imported here). Cellpose-SAM (`SegmentationModel(network="cpsam")`)
+is models/vit_sam.py on Cellpose's tiles (models/sam_tiles.py) with its
+attention kernel (models/sam_attention.py).
 
 The JAX package's functional U-Net names map to the `UNet` module:
 `init_unet(key, config)` is `UNet(config, generator=...)` (its parameters

@@ -12,6 +12,11 @@ leaves as they are, and converts it to the `UNet` state_dict: 3x3 convs to
 writes an orbax checkpoint instead, which the port can neither read nor
 write.
 
+`load_state_dict` reads a torch state dict file as it is (Cellpose-SAM's
+published `cpsam` checkpoint is one, in the key layout of
+models/vit_sam.py), with `torch.load(weights_only=True)`: tensors only,
+no pickled code.
+
 `unet_checkpoint.npz` beside this module is the trained checkpoint
 `checkpoints/unet` of the repository, exported leaf by leaf with
 `np.savez(path, **flatten_tree(load_checkpoint("checkpoints/unet")))` (the
@@ -29,6 +34,7 @@ import torch
 __all__ = [
     "DEFAULT_WEIGHTS",
     "flatten_tree",
+    "load_state_dict",
     "load_weights",
     "save_weights",
     "state_dict_from_tree",
@@ -120,3 +126,11 @@ def load_weights(path: str | Path = DEFAULT_WEIGHTS) -> dict[str, torch.Tensor]:
     """The `UNet` state_dict stored in an `.npz` of the flattened JAX tree."""
     with np.load(Path(path)) as data:
         return state_dict_from_tree({k: data[k] for k in data.files})
+
+
+def load_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """A torch state dict file on the CPU, read with weights_only=True."""
+    state = torch.load(Path(path), map_location="cpu", weights_only=True)
+    if not isinstance(state, dict) or not all(isinstance(v, torch.Tensor) for v in state.values()):
+        raise ValueError(f"{path} holds no state dict of tensors")
+    return dict(state)

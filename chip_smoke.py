@@ -152,7 +152,19 @@ Phases, each printing its lines:
    composition beside phase 13's planar parts; the 3-channel S2D forward
    beside the planar one on phase 5's batch; each of the 13 conv calls beside its bound and cuDNN's conv, and
    `lane_moments` at the two stem outputs;
-16. the `kernels` JSON line, then the card's name and power limit, then
+16. Cellpose-SAM (models/vit_sam.py) - `batch_segment(network="cpsam")`
+   on the 8 wells' first three channels with seeded weights, capturing the
+   qkv of blocks 0, 11 and 23 of its first micro-batch and of block 23 of
+   its last (32 tiles); kernel 8 (models/sam_attention.py,
+   csrc/sam_attention.cu) against its plain version on those and on random
+   q, k, v of 64 and 32 tiles at the published sizes (32 x 32 tokens, 16
+   heads of 64), within SAM_ATTENTION_STEPS bfloat16 steps at the largest
+   |o|; timed per micro-batch of 64 tiles beside its bound, the plain
+   version and SDPA with a materialised bias (the library call, timed only
+   here); then `batch_segment(network="cpsam", return_flows=True)` again:
+   kernel 8's launches (24 per micro-batch), the call's time and its
+   stages;
+17. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -201,7 +213,7 @@ CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
 RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
                  (225, "bisection on staged keys"))
 KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select",
-                    "percentile_stretch"]
+                    "percentile_stretch", "sam_attention"]
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "tests" / "data"
 ND2_CHANNELS = ["DAPI", "FITC", "TRITC", "CY5"]
@@ -927,6 +939,144 @@ def tree_equal(a, b) -> bool:
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(tree_equal(x, y) for x, y in zip(a, b))
     return torch.equal(a, b)
+
+
+def bf16_steps(err: float, ref: torch.Tensor) -> float:
+    """`err` in bfloat16 steps (the spacing of bfloat16 values) at the
+    largest |ref|."""
+    return err / 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+
+
+# kernel 8 against its plain version: at most this many bfloat16 steps at the
+# largest |o| (the output's own rounding is half a step; P enters P V in
+# bfloat16, ~2^-9 of each weight)
+SAM_ATTENTION_STEPS = 2.0
+
+
+def cellpose_sam_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say, smi: str) -> dict:
+    """Phase 16: `batch_segment(network="cpsam")` on the wells' first three
+    channels with seeded weights, once to build and to capture the qkv of
+    blocks 0, 11 and 23 of the first micro-batch and of block 23 of the last
+    (the call's tail of 32 tiles); kernel 8 against its plain version on
+    those and on random q, k, v of a micro-batch and of a tail, timed per
+    micro-batch beside its bound and SDPA with a materialised bias; then the
+    call again, counted and timed. Returns kernel 8's entry of the `kernels`
+    line."""
+    from arcadia_microscopy_tools_tpu_torch.models import sam_attention as sa
+    from arcadia_microscopy_tools_tpu_torch.models import segmentation as seg_mod
+    from arcadia_microscopy_tools_tpu_torch.models import vit_sam
+
+    # the route: batch_segment(network="cpsam") on 8 3-channel images, seeded weights
+    sam_model = m.pkg.SegmentationModel(device=dev, network="cpsam")
+    if rehearsal:
+        sam_model._sam_config = vit_sam.SamConfig(width=128, depth=2, heads=2, mlp=256, neck=16,
+                                                  global_blocks=(1,))
+        sam_imgs = [np.asarray(w[:3], dtype=np.float64) for w in m.testing.synthetic_wells(
+            8, 4, 256, 256, 20, seed=16)]
+    else:
+        sam_imgs = [np.asarray(w[:3], dtype=np.float64) for w in wells]
+    sam_cfg = sam_model._sam_config
+    depth = sam_cfg.depth
+    _ = sam_model.network
+    captured, calls = {}, [0]
+    real_attention = vit_sam.sam_attention
+
+    def record(qkv, rh, rw, heads, grid):
+        micro, block = divmod(calls[0], depth)
+        calls[0] += 1
+        if (micro == 0 and block in (0, depth // 2 - 1, depth - 1)) or block == depth - 1:
+            captured[(micro, block)] = (qkv.clone(), rh, rw)
+        return real_attention(qkv, rh, rw, heads, grid)
+
+    vit_sam.sam_attention = record
+    try:
+        sam_model.batch_segment(sam_imgs, show_progress=False)  # builds the kernel
+    finally:
+        vit_sam.sam_attention = real_attention
+    last = max(k[0] for k in captured)
+    cases = {f"block {b}, micro-batch 0": captured[(0, b)]
+             for b in sorted({0, depth // 2 - 1, depth - 1})}
+    cases[f"block {depth - 1}, micro-batch {last} (the tail)"] = captured[(last, depth - 1)]
+    del captured
+    grid, heads, hd = sam_cfg.grid, sam_cfg.heads, sam_cfg.head_dim
+    sam_tiles_n = seg_mod.SAM_MICRO_BATCH if not rehearsal else 4
+    gq = torch.Generator(device=dev).manual_seed(16)
+    qkv = torch.randn(sam_tiles_n, grid * grid, 3 * heads * hd, generator=gq, device=dev)
+    qkv = qkv.to(torch.bfloat16)
+    rh, rw = ((0.05 * torch.randn(2 * grid - 1, hd, generator=gq, device=dev)).to(torch.bfloat16)
+              for _ in range(2))
+    cases[f"random, {sam_tiles_n} tiles"] = (qkv, rh, rw)
+    cases[f"random, {sam_tiles_n // 2} tiles"] = (qkv[: sam_tiles_n // 2], rh, rw)
+    sa.reset_launch_counts()
+    errs = {}
+    for name, (q_, h_, w_) in cases.items():
+        want = sa.sam_attention_plain(q_, h_, w_, heads, grid).float()
+        got = sa.sam_attention(q_, h_, w_, heads, grid).float()
+        err = float((got - want).abs().max())
+        errs[name] = {"tiles": q_.shape[0], "max_abs_err": err,
+                      "max_abs_o": float(want.abs().max()),
+                      "mean_abs_err": float((got - want).abs().mean()),
+                      "bf16_steps": bf16_steps(err, want)}
+        del want, got
+    say(f"[check] sam_attention against its plain version: {json.dumps(errs)}")
+    launched = sa.launch_counts["sam_attention"]
+    worst = max(e["bf16_steps"] for e in errs.values())
+    if not rehearsal and (worst > SAM_ATTENTION_STEPS or launched != len(cases)):
+        raise RuntimeError(f"sam_attention against its plain version: {worst:.2f} bf16 steps "
+                           f"(at most {SAM_ATTENTION_STEPS}), launches {sa.launch_counts}")
+    err8 = max(e["max_abs_err"] for e in errs.values())
+    del cases
+    per_tile_block_s = (heads * (4.0 * (grid * grid) ** 2 * hd + 4.0 * grid**3 * hd)
+                        / BF16_TENSOR_FLOP_PER_S)
+    bound8 = sam_tiles_n * per_tile_block_s * 1e3
+    ms8, plain8 = timed(lambda: sa.sam_attention(qkv, rh, rw, heads, grid),
+                        lambda: sa.sam_attention_plain(qkv, rh, rw, heads, grid))
+
+    def sdpa_with_bias():
+        q8, k8, v8 = sa.split_qkv(qkv, heads)
+        idx = torch.arange(grid, device=dev)
+        tab_h = rh.float()[idx[:, None] - idx[None, :] + grid - 1]
+        tab_w = rw.float()[idx[:, None] - idx[None, :] + grid - 1]
+        r_q = q8.float().view(-1, grid, grid, hd)
+        bias = (torch.einsum("nhwc,hkc->nhwk", r_q, tab_h)[..., :, None]
+                + torch.einsum("nhwc,wkc->nhwk", r_q, tab_w)[..., None, :])
+        bias = bias.reshape(-1, grid * grid, grid * grid).to(torch.bfloat16)
+        return torch.nn.functional.scaled_dot_product_attention(q8, k8, v8, attn_mask=bias)
+
+    lib8 = time_cuda(sdpa_with_bias, reps=3, warmup=1) if not rehearsal else None
+    del qkv
+    sa.reset_launch_counts()
+    sam_model.stages = m.profiling.StageTimer()
+    t_sam = time.perf_counter()
+    sam_masks, sam_flows = sam_model.batch_segment(sam_imgs, show_progress=False,
+                                                   return_flows=True)
+    sam_call_s = time.perf_counter() - t_sam
+    launches8 = sa.launch_counts["sam_attention"]
+    sam_tiles_call = sam_model.stages.counts["segment.encoder.tiles"]
+    micro_batches = -(-sam_tiles_call // seg_mod.SAM_MICRO_BATCH)
+    if not rehearsal and launches8 != depth * micro_batches:
+        raise RuntimeError(f"kernel 8 launched {launches8} times for {sam_tiles_call} tiles")
+    if any(m_ is None for m_ in sam_masks) or any(not np.isfinite(f).all() for f in sam_flows):
+        raise RuntimeError("the cpsam route lost an image or returned non-finite maps")
+    call8 = ms8 * sam_tiles_call / sam_tiles_n * depth
+    say(f"[time] sam_attention (kernel 8): {ms8:.4f} ms per "
+        f"micro-batch of {sam_tiles_n} tiles ({bound8 / ms8:.1%} of its {bound8:.4f} ms bound, "
+        f"operations); ~{call8:.1f} ms per call of {len(sam_imgs)} images ({sam_tiles_call} "
+        f"tiles, {launches8} launches; bound "
+        f"{sam_tiles_call * depth * per_tile_block_s * 1e3:.2f} ms); "
+        f"plain {plain8:.3f} ms; SDPA with a materialised bf16 bias (library call, bias "
+        f"included) {lib8} ms; max |err| {err8:.3g} ({worst:.2f} bf16 steps); card: {smi}")
+    st8 = sam_model.stages
+    say(f"[sam] batch_segment(network='cpsam') on {len(sam_imgs)} images of "
+        f"{sam_imgs[0].shape}: {sam_call_s:.3f} s ({len(sam_imgs) / sam_call_s:.2f} images/s); "
+        f"stages {json.dumps({k: round(v, 4) for k, v in st8.totals.items()})}; "
+        f"cells per image {[int(x.max()) for x in sam_masks]}")
+    return {
+        "name": "sam_attention", "route": "cuda",
+        "source": "arcadia_microscopy_tools_tpu_torch/csrc/sam_attention.cu",
+        "replaces": None, "launches": launches8, "max_abs_err": err8, "ms": ms8,
+        "plain_ms": plain8, "bound_ms": bound8, "bound_by": "operations", "library_ms": lib8,
+    }
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2496,10 +2646,13 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
             f"(bytes), {b_ms / ms:.1%} of it reached; plain {plain_ms:.4f} ms")
         del xg
 
+    # -- 16. Cellpose-SAM: kernel 8 and the cpsam route ------------------------------
+    kernels.append(cellpose_sam_phase(m, dev, rehearsal, wells, timed, say, smi))
+
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 16. result -----------------------------------------------------------------
+    # -- 17. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)
