@@ -36,7 +36,8 @@ The runner keeps the reference's host-side contract:
 - capacity escalation: wells whose health scalars report a foreground,
   cell-count or boundary-edge overflow (or a CC certificate failure) are
   re-dispatched with 4x and then 16x capacities before they are failed;
-- decode prefetch on a thread pool, and per-stage timings.
+- decode prefetch on a thread pool, which also stages each batch into
+  reused (on a CUDA card page-locked) host buffers, and per-stage timings.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import itertools
 import json
 import logging
 import os
+import threading
 import time
 import warnings
 from collections import deque
@@ -805,6 +807,102 @@ def _progress_bar(total: int):
     return tqdm(total=total, desc="Plate")
 
 
+# batches of host staging a runner keeps: batch k is copied and launched while
+# batches k + 1 and k + 2 are staged
+STAGING_SLOTS = 3
+
+
+class _StagingRing:
+    """`STAGING_SLOTS` reused host buffers of one (wells, C, H, W) uint16
+    batch shape, page-locked where `pinned` (the copy to a CUDA card is then
+    non-blocking), and the event behind the last copy out of each."""
+
+    def __init__(self, shape: tuple[int, ...], pinned: bool):
+        self.shape = shape
+        self.slots = [torch.empty(shape, dtype=torch.uint16, pin_memory=pinned)
+                      for _ in range(STAGING_SLOTS)]
+        self.arrays = [s.numpy() for s in self.slots]
+        self.events: list[torch.cuda.Event | None] = [None] * STAGING_SLOTS
+
+
+class _Staging:
+    """One run's turns on its runner's staging ring. Batch j of the run may
+    fill slot j % STAGING_SLOTS once the main thread has dispatched batch
+    j - STAGING_SLOTS and the copy out of the slot has completed; the main
+    thread hands each slot on in batch order (`done`), whether or not the
+    batch took it, so a worker waits only for a batch dispatched before its
+    own. On the CPU the slots are ordinary memory, and the well program,
+    which reads the slot itself there, has returned before `done`."""
+
+    def __init__(self, runner: PlateRunner, wells: int):
+        self.runner, self.wells = runner, wells
+        self.ring: _StagingRing | None = None  # chosen by the run's first uniform batch
+        self.turn = list(range(STAGING_SLOTS))
+        self.closed = False
+        self.cond = threading.Condition()
+
+    def fill(self, j: int, images: list[np.ndarray]) -> tuple[int | None, float]:
+        """Stage batch j's wells (this rank's rows of them) into its slot:
+        the slot and the copy's wall seconds, or (None, 0.0) where the batch
+        takes none: a device neither CUDA nor the CPU, no wells, wells of
+        several shapes or not uint16, or a shape other than the ring's."""
+        skip = None, 0.0
+        first = images[0] if images else None
+        if (self.runner.device.type not in ("cuda", "cpu") or first is None
+                or any(img.shape != first.shape or img.dtype != np.uint16 for img in images)):
+            return skip
+        try:
+            rows, _ = self.runner._slab(*first.shape[-2:])
+        except ValueError:  # a well too small for its slabs fails in dispatch
+            return skip
+        h, w = first.shape[-2:]
+        shape = (self.wells, *first.shape[:-2], len(range(h)[rows]), w)
+        with self.cond:
+            if self.ring is None:  # the runner's, unless its shape differs
+                ring = self.runner._staging
+                if ring is None or ring.shape != shape:
+                    self.runner._staging = None  # unpin the old ring before pinning anew
+                    ring = self.runner._staging = _StagingRing(
+                        shape, pinned=self.runner.device.type == "cuda")
+                self.ring = ring
+            if self.ring.shape != shape or len(images) > self.wells:
+                return skip
+            k = j % STAGING_SLOTS
+            self.cond.wait_for(lambda: self.closed or self.turn[k] == j)
+            if self.closed:
+                return skip
+        event = self.ring.events[k]
+        if event is not None:
+            event.synchronize()
+        t0 = time.time()
+        for dst, img in zip(self.ring.arrays[k], images):
+            np.copyto(dst, img[..., rows, :])
+        return k, time.time() - t0
+
+    def upload(self, k: int, n: int) -> torch.Tensor:
+        """The first `n` wells of slot `k` on the runner's device, enqueued
+        on its current stream; on a CUDA card the slot's event follows the
+        copy."""
+        staged = self.ring.slots[k][:n].to(self.runner.device, non_blocking=True)
+        if staged.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(staged.device))
+            self.ring.events[k] = event
+        return staged
+
+    def done(self, j: int) -> None:
+        """Batch j is dispatched: its slot goes to batch j + STAGING_SLOTS."""
+        with self.cond:
+            self.turn[j % STAGING_SLOTS] = j + STAGING_SLOTS
+            self.cond.notify_all()
+
+    def close(self) -> None:
+        """Release every worker still waiting for a slot (the run ended)."""
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+
+
 class PlateRunner:
     """Runs a plate of wells through the fused pipeline on one device or on
     a mesh of ranks (one device each)."""
@@ -837,6 +935,7 @@ class PlateRunner:
         self.network = (
             unet_network(unet_params, self.device) if self.config.method == "unet" else None
         )
+        self._staging: _StagingRing | None = None  # kept across runs of one batch shape
 
     # -- checkpoint / resume ---------------------------------------------------
 
@@ -1057,6 +1156,15 @@ class PlateRunner:
             max_inflight: Dispatched-but-undrained batch cap; bounds the
                 decoded images held for capacity retries.
 
+        The worker that decodes a batch of same-shape uint16 wells also
+        copies them into one of `STAGING_SLOTS` host buffers of a whole
+        batch, which the runner keeps for later runs of that batch shape
+        (on a CUDA card page-locked: 3 x 268 MB for 8 wells of 4 x 2048^2,
+        perhaps rounded up to a power of two by torch's pinned allocator);
+        the main thread copies the batch to the device from there without
+        waiting. Batches of several shapes, capacity retries and devices
+        other than CUDA or the CPU are stacked on the main thread instead.
+
         Returns:
             PlateResults with one table per well (None for failed wells).
             Its `timings` are host seconds and counts: the main thread's
@@ -1065,8 +1173,11 @@ class PlateRunner:
             `h2d_s`, "plate.launch" -> `launch_s`, "plate.readback" ->
             `readback_s`, "plate.gather" -> `gather_s`, "plate.assemble" ->
             `assemble_s`, all inside "plate.run"), and the prefetch workers'
-            `decode_s`, `decode_cpu_s`, `decode_wells`, with
-            `capacity_retries`.
+            `decode_s`, `decode_cpu_s`, `decode_wells` and `fill_s` (their
+            copies into staging buffers), with `capacity_retries`,
+            `batches` (every dispatch) and `pinned_batches` (dispatches
+            uploaded from a buffer a worker filled; on the CPU the buffers
+            are ordinary memory).
         """
         stages = StageTimer()
         with stages.stage("plate.run"):
@@ -1086,6 +1197,9 @@ class PlateRunner:
             "decode_cpu_s": 0.0,
             "decode_wells": 0.0,
             "capacity_retries": 0.0,
+            "fill_s": 0.0,
+            "batches": 0.0,
+            "pinned_batches": 0.0,
         }
         shard = self._input_sharding()
         spatial = shard.space_count > 1
@@ -1124,17 +1238,27 @@ class PlateRunner:
                 return None
 
         def dispatch(
-            images: list[np.ndarray], ok_ids: list[str], config: PlateRunConfig, retryable: bool
+            images: list[np.ndarray], ok_ids: list[str], config: PlateRunConfig, retryable: bool,
+            slot: int | None = None,
         ) -> dict | None:
-            """Stage this rank's share of one batch of same-shape wells and
-            run the well program."""
+            """Stage this rank's share of one batch of same-shape wells
+            (from `slot` of the staging ring where a prefetch worker filled
+            it, else stacked here) and run the well program."""
             ordinal = f"batch {next(batch_no)}"
+            timings["batches"] += 1
             try:
                 rows, slab = self._slab(*images[0].shape[-2:])
-                with stages.stage("plate.stage", args=ordinal):
-                    batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
-                with stages.stage("plate.h2d", args=ordinal):
-                    staged = torch.from_numpy(batch).to(self.device)
+                if slot is not None:
+                    with stages.stage("plate.stage", args=ordinal):
+                        n = len(images)
+                    with stages.stage("plate.h2d", args=ordinal):
+                        staged = staging.upload(slot, n)
+                    timings["pinned_batches"] += 1
+                else:
+                    with stages.stage("plate.stage", args=ordinal):
+                        batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
+                    with stages.stage("plate.h2d", args=ordinal):
+                        staged = torch.from_numpy(batch).to(self.device)
                 with stages.stage("plate.launch", args=ordinal):
                     program = _build_well_program(config, staged.shape[1], self.network,
                                                   slab=slab, stages=stages)
@@ -1161,6 +1285,8 @@ class PlateRunner:
             }
 
         batch_no = itertools.count()  # dispatches of this run, named in its ranges
+        # slots of this rank's wells of a whole batch
+        staging = _Staging(self, len(range(batch_size)[shard.batch_rows(batch_size)]))
         retry_ids: list[str] = []
         retry_images: dict[str, np.ndarray] = {}
 
@@ -1229,10 +1355,12 @@ class PlateRunner:
                     if lead:
                         self._record_well(manifest, well_id, table)
 
-        def dispatch_by_shape(images, ok_ids, config, retryable, chunk: int) -> list[dict]:
+        def dispatch_by_shape(images, ok_ids, config, retryable, chunk: int,
+                              slot: int | None = None) -> list[dict]:
             """Dispatch wells grouped by image shape (a well whose shape
             differs gets its own dispatch instead of failing its
-            batchmates), at most `chunk` wells per dispatch."""
+            batchmates), at most `chunk` wells per dispatch; `slot` holds
+            all of `images`, staged."""
             groups: dict[tuple, list[int]] = {}
             for i, img in enumerate(images):
                 groups.setdefault(img.shape, []).append(i)
@@ -1241,15 +1369,17 @@ class PlateRunner:
                 for k in range(0, len(idxs), chunk):
                     part = idxs[k : k + chunk]
                     rec = dispatch([images[i] for i in part], [ok_ids[i] for i in part],
-                                   config, retryable)
+                                   config, retryable, slot if len(part) == len(images) else None)
                     if rec is not None:
                         recs.append(rec)
             return recs
 
-        def load_batch(batch_ids: list[str]):
-            """Decode this rank's block of one batch (runs on a prefetch
-            worker; touches no shared state). Wall and thread-CPU seconds
-            are summed per well."""
+        def load_batch(j: int):
+            """Decode this rank's block of batch j and stage it into its
+            slot of the ring (runs on a prefetch worker; touches no shared
+            state but the ring's turns). Wall and thread-CPU seconds of the
+            decode are summed per well, the fill's wall seconds per batch."""
+            batch_ids = batches[j]
             images: list[np.ndarray] = []
             ok_ids: list[str] = []
             failed: list[str] = []
@@ -1264,17 +1394,23 @@ class PlateRunner:
                 else:
                     images.append(img)
                     ok_ids.append(well_id)
-            return images, ok_ids, failed, (wall, cpu, len(images) + len(failed))
+            slot, fill = staging.fill(j, images)
+            return j, images, ok_ids, failed, slot, (wall, cpu, len(images) + len(failed), fill)
 
         def submit(loaded, inflight: deque) -> None:
-            images, ok_ids, failed, (wall, cpu, n) = loaded
+            j, images, ok_ids, failed, slot, (wall, cpu, n, fill) = loaded
             timings["decode_s"] += wall
             timings["decode_cpu_s"] += cpu
             timings["decode_wells"] += n
+            timings["fill_s"] += fill
             if spatial:
+                n_ok = len(images)
                 images, ok_ids, failed = self._agree_on_slabs(images, ok_ids, failed)
-            inflight.append((dispatch_by_shape(images, ok_ids, self.config, True, batch_size),
-                             failed))
+                if len(images) != n_ok:  # the slot holds wells no longer dispatched
+                    slot = None
+            inflight.append((dispatch_by_shape(images, ok_ids, self.config, True, batch_size,
+                                               slot), failed))
+            staging.done(j)
             while len(inflight) > max_inflight:
                 drain(*inflight.popleft())
 
@@ -1285,21 +1421,25 @@ class PlateRunner:
                 from concurrent.futures import ThreadPoolExecutor
 
                 with ThreadPoolExecutor(max_workers=prefetch) as pool:
-                    decoding = deque(pool.submit(load_batch, b) for b in batches[:prefetch])
-                    next_idx = min(prefetch, len(batches))
-                    while decoding:
-                        with stages.stage("plate.fetch_wait"):
-                            loaded = decoding.popleft().result()
-                        if next_idx < len(batches):
-                            decoding.append(pool.submit(load_batch, batches[next_idx]))
-                            next_idx += 1
-                        submit(loaded, inflight)
-                        if progress is not None:
-                            progress.update(1)
+                    try:
+                        decoding = deque(pool.submit(load_batch, j)
+                                         for j in range(min(prefetch, len(batches))))
+                        next_idx = len(decoding)
+                        while decoding:
+                            with stages.stage("plate.fetch_wait"):
+                                loaded = decoding.popleft().result()
+                            if next_idx < len(batches):
+                                decoding.append(pool.submit(load_batch, next_idx))
+                                next_idx += 1
+                            submit(loaded, inflight)
+                            if progress is not None:
+                                progress.update(1)
+                    finally:
+                        staging.close()  # a failed run leaves no worker waiting on a slot
             else:
-                for batch_ids in batches:
+                for j in range(len(batches)):
                     with stages.stage("plate.fetch_wait"):
-                        loaded = load_batch(batch_ids)
+                        loaded = load_batch(j)
                     submit(loaded, inflight)
                     if progress is not None:
                         progress.update(1)
