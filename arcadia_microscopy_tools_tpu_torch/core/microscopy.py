@@ -30,6 +30,7 @@ import torch
 
 from ..exceptions import MetadataWarning
 from ..typing import AnyArray, ScalarArray, UInt16Array
+from ..utils import resolve_device
 from .channels import Channel
 from .metadata_structures import ChannelMetadata, DimensionFlags
 
@@ -236,8 +237,6 @@ class MicroscopyImage:
         the card a uint16 tensor supports little beyond copies and casts:
         convert it before computing on it.
         """
-        from ..parallel.plate import resolve_device
-
         dev = resolve_device(device)
         cache = self.__dict__.setdefault("_device_intensities", {})
         buffer = cache.get(str(dev))

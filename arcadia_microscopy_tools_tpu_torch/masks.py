@@ -32,8 +32,8 @@ from .ops.labeling import clear_border as _clear_border
 from .ops.labeling import label as _label
 from .ops.labeling import relabel_sequential as _relabel_sequential
 from .ops.regionprops import measure_intensity_stack, measure_labels
-from .parallel.plate import resolve_device
 from .typing import BoolArray, Float64Array, Int64Array, ScalarArray, UInt16Array
+from .utils import resolve_device
 
 __all__ = [
     "DEFAULT_CELL_PROPERTY_NAMES",

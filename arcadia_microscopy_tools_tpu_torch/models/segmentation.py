@@ -40,9 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from ..exceptions import SegmentationWarning
-from ..parallel.plate import resolve_device
 from ..typing import Float64Array, Int64Array
-from ..utils import get_tqdm
+from ..utils import get_tqdm, resolve_device
 from ..utils.profiling import StageTimer
 from .flows import compute_masks
 from .sam_tiles import average_tiles, crop_padding, make_tiles, pad_to_tile, tile_count

@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..parallel.plate import resolve_device
+from ..utils import resolve_device
 from .flows import masks_to_flows
 from .synthetic import synthesize_cells
 from .unet import UNet, UNetConfig

@@ -19,7 +19,7 @@ import torch
 
 from .ops import basic as _basic
 from .ops import threshold as _threshold
-from .parallel.plate import resolve_device
+from .utils import resolve_device
 
 __all__ = [
     "apply_threshold",

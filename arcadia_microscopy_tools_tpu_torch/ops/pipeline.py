@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 __all__ = ["ImageOperation", "Pipeline"]
 
 
@@ -109,10 +111,6 @@ class Pipeline:
                 UserWarning,
                 stacklevel=2,
             )
-        # imported here: parallel.plate imports the ops package, whose
-        # __init__ imports this module
-        from ..parallel.plate import resolve_device
-
         self.device = resolve_device(self.device)
 
     def _fold(self, x: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ import threading
 import time
 import warnings
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Callable, Mapping
@@ -84,6 +85,7 @@ from ..ops.labeling import component_roots
 from ..ops.morphology import binary_opening, disk
 from ..ops.regionprops import measure_compacted, measure_segments, perimeter_classes
 from ..ops.threshold import GLOBAL_METHODS
+from ..utils import get_tqdm, resolve_device
 from ..utils.profiling import StageTimer
 from .collectives import all_gather, all_reduce, group_rank_size, halo_rows
 from .collectives import all_gather_rows
@@ -133,6 +135,41 @@ _INTENSITY_STATS = [
     "intensity_min",
     "intensity_std",
 ]
+
+
+@dataclass(frozen=True)
+class _PackedColumns:
+    """The well program's packed per-cell columns: `_PROP_COLUMNS`, then
+    `_INTENSITY_STATS` of each channel of `measure_idx`, in that order."""
+
+    measure_idx: tuple[int, ...]
+
+    @classmethod
+    def of(cls, config: PlateRunConfig, n_channels: int) -> _PackedColumns:
+        """The columns of wells of `n_channels` channels under `config`."""
+        idx = config.measure_channel_indices
+        return cls(tuple(idx) if idx is not None else tuple(range(n_channels)))
+
+    @property
+    def width(self) -> int:
+        return len(_PROP_COLUMNS) + len(_INTENSITY_STATS) * len(self.measure_idx)
+
+    def pack(self, props: dict, stats: list[dict]) -> torch.Tensor:
+        """(..., max_cells, width) float32 from the measurement's columns."""
+        columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
+        columns += [stats[k][stat].to(torch.float32)
+                    for k in range(len(self.measure_idx)) for stat in _INTENSITY_STATS]
+        return torch.stack(columns, -1)
+
+    def unpack(self, row: np.ndarray) -> tuple[dict, dict]:
+        """One well's (max_cells, width) host row -> its property columns and
+        {channel index: {stat: column}}."""
+        props = {name: row[:, i] for i, name in enumerate(_PROP_COLUMNS)}
+        props["valid"] = props["valid"] > 0.5
+        base, n = len(_PROP_COLUMNS), len(_INTENSITY_STATS)
+        intensity = {ci: {stat: row[:, base + k * n + j] for j, stat in enumerate(_INTENSITY_STATS)}
+                     for k, ci in enumerate(self.measure_idx)}
+        return props, intensity
 
 # wells per device dispatch when PlateRunConfig.batch_size is None
 DEFAULT_BATCH = 8
@@ -234,19 +271,6 @@ class PlateResults:
                     row[f"mean_{col}"] = float(table[col].mean()) if len(table) else np.nan
             rows.append(row)
         return pd.DataFrame(rows)
-
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device an entry point runs on: the CUDA card unless the caller
-    names another. Raises when no CUDA device exists and none was named."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels on the CPU"
-        )
-    return torch.device("cuda")
 
 
 def _check_supported(config: PlateRunConfig) -> None:
@@ -711,11 +735,7 @@ def _build_well_program(
     if debug_labels and config.method != "unet":
         raise ValueError("debug_labels is only supported for method='unet'")
     seg_idx = config.seg_channel_index
-    measure_idx = (
-        config.measure_channel_indices
-        if config.measure_channel_indices is not None
-        else tuple(range(n_channels))
-    )
+    columns = _PackedColumns.of(config, n_channels)
 
     def classical(img: torch.Tensor, stack: torch.Tensor):
         if slab is not None:
@@ -763,48 +783,15 @@ def _build_well_program(
         # beyond copies and casts. Integer channels stay integers, which the
         # measurement sums exactly.
         wide = img.to(torch.float32 if img.dtype.is_floating_point else torch.int32)
-        stack = wide[:, list(measure_idx)]
+        stack = wide[:, list(columns.measure_idx)]
         method = classical if config.method == "classical" else unet
         props, stats, health, labels = method(img, stack)
         with stages.stage("well.pack"):
-            columns = [props[name].to(torch.float32) for name in _PROP_COLUMNS]
-            for k in range(len(measure_idx)):
-                for stat in _INTENSITY_STATS:
-                    columns.append(stats[k][stat].to(torch.float32))
-            packed = torch.stack(columns, -1)
+            packed = columns.pack(props, stats)
             health = torch.stack([h.to(torch.int32) for h in health], -1)
         return (packed, health, labels) if debug_labels else (packed, health)
 
     return well_fn
-
-
-def _unpack_outputs(
-    packed: np.ndarray, health: np.ndarray, measure_idx: tuple[int, ...]
-) -> tuple[dict, dict, dict]:
-    """Host-side inverse of the program's column packing."""
-    props = {name: packed[..., i] for i, name in enumerate(_PROP_COLUMNS)}
-    props["valid"] = props["valid"] > 0.5
-    base = len(_PROP_COLUMNS)
-    intensity = {}
-    for k, ci in enumerate(measure_idx):
-        intensity[ci] = {
-            stat: packed[..., base + k * len(_INTENSITY_STATS) + j]
-            for j, stat in enumerate(_INTENSITY_STATS)
-        }
-    health_dict = {
-        "num_components": health[..., 0],
-        "fg_overflow": health[..., 1] > 0,
-        "converged": health[..., 2] > 0,
-    }
-    return props, intensity, health_dict
-
-
-def _progress_bar(total: int):
-    try:
-        from tqdm.auto import tqdm
-    except ImportError:
-        return None
-    return tqdm(total=total, desc="Plate")
 
 
 # batches of host staging a runner keeps: batch k is copied and launched while
@@ -823,84 +810,6 @@ class _StagingRing:
                       for _ in range(STAGING_SLOTS)]
         self.arrays = [s.numpy() for s in self.slots]
         self.events: list[torch.cuda.Event | None] = [None] * STAGING_SLOTS
-
-
-class _Staging:
-    """One run's turns on its runner's staging ring. Batch j of the run may
-    fill slot j % STAGING_SLOTS once the main thread has dispatched batch
-    j - STAGING_SLOTS and the copy out of the slot has completed; the main
-    thread hands each slot on in batch order (`done`), whether or not the
-    batch took it, so a worker waits only for a batch dispatched before its
-    own. On the CPU the slots are ordinary memory, and the well program,
-    which reads the slot itself there, has returned before `done`."""
-
-    def __init__(self, runner: PlateRunner, wells: int):
-        self.runner, self.wells = runner, wells
-        self.ring: _StagingRing | None = None  # chosen by the run's first uniform batch
-        self.turn = list(range(STAGING_SLOTS))
-        self.closed = False
-        self.cond = threading.Condition()
-
-    def fill(self, j: int, images: list[np.ndarray]) -> tuple[int | None, float]:
-        """Stage batch j's wells (this rank's rows of them) into its slot:
-        the slot and the copy's wall seconds, or (None, 0.0) where the batch
-        takes none: a device neither CUDA nor the CPU, no wells, wells of
-        several shapes or not uint16, or a shape other than the ring's."""
-        skip = None, 0.0
-        first = images[0] if images else None
-        if (self.runner.device.type not in ("cuda", "cpu") or first is None
-                or any(img.shape != first.shape or img.dtype != np.uint16 for img in images)):
-            return skip
-        try:
-            rows, _ = self.runner._slab(*first.shape[-2:])
-        except ValueError:  # a well too small for its slabs fails in dispatch
-            return skip
-        h, w = first.shape[-2:]
-        shape = (self.wells, *first.shape[:-2], len(range(h)[rows]), w)
-        with self.cond:
-            if self.ring is None:  # the runner's, unless its shape differs
-                ring = self.runner._staging
-                if ring is None or ring.shape != shape:
-                    self.runner._staging = None  # unpin the old ring before pinning anew
-                    ring = self.runner._staging = _StagingRing(
-                        shape, pinned=self.runner.device.type == "cuda")
-                self.ring = ring
-            if self.ring.shape != shape or len(images) > self.wells:
-                return skip
-            k = j % STAGING_SLOTS
-            self.cond.wait_for(lambda: self.closed or self.turn[k] == j)
-            if self.closed:
-                return skip
-        event = self.ring.events[k]
-        if event is not None:
-            event.synchronize()
-        t0 = time.time()
-        for dst, img in zip(self.ring.arrays[k], images):
-            np.copyto(dst, img[..., rows, :])
-        return k, time.time() - t0
-
-    def upload(self, k: int, n: int) -> torch.Tensor:
-        """The first `n` wells of slot `k` on the runner's device, enqueued
-        on its current stream; on a CUDA card the slot's event follows the
-        copy."""
-        staged = self.ring.slots[k][:n].to(self.runner.device, non_blocking=True)
-        if staged.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(staged.device))
-            self.ring.events[k] = event
-        return staged
-
-    def done(self, j: int) -> None:
-        """Batch j is dispatched: its slot goes to batch j + STAGING_SLOTS."""
-        with self.cond:
-            self.turn[j % STAGING_SLOTS] = j + STAGING_SLOTS
-            self.cond.notify_all()
-
-    def close(self) -> None:
-        """Release every worker still waiting for a slot (the run ended)."""
-        with self.cond:
-            self.closed = True
-            self.cond.notify_all()
 
 
 class PlateRunner:
@@ -1003,6 +912,19 @@ class PlateRunner:
         i = shard.space_index
         return slice(bounds[i], bounds[i + 1]), RowSlab(self.mesh.group(SPACE_AXIS), i, bounds)
 
+    def _program(
+        self,
+        config: PlateRunConfig,
+        n_channels: int,
+        shape: tuple[int, int],
+        stages: StageTimer | None = None,
+    ) -> tuple[slice, Callable[[torch.Tensor], tuple[torch.Tensor, ...]]]:
+        """This rank's rows of wells of `n_channels` x `shape` pixels and the
+        well program that takes them (on a spatial mesh, this rank's row
+        slab of each well; see `_slab`)."""
+        rows, slab = self._slab(*shape)
+        return rows, _build_well_program(config, n_channels, self.network, slab=slab, stages=stages)
+
     def _get_compiled(
         self, n_channels: int, shape: tuple[int, int], config: PlateRunConfig | None = None
     ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
@@ -1012,10 +934,8 @@ class PlateRunner:
         and gets every well's packed columns and health, all-gathered."""
         config = config or self.config
         shard = self._input_sharding()
-        rows, slab = self._slab(*shape)
-        program = _build_well_program(config, n_channels, self.network, slab=slab)
-        n_measured = len(config.measure_channel_indices or range(n_channels))
-        width = len(_PROP_COLUMNS) + len(_INTENSITY_STATS) * n_measured
+        rows, program = self._program(config, n_channels, shape)
+        width = _PackedColumns.of(config, n_channels).width
 
         def run(batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             b = batch.shape[0]
@@ -1059,37 +979,24 @@ class PlateRunner:
         props: dict[str, np.ndarray],
         intensity: dict[int, dict[str, np.ndarray]],
         channels: list[Channel] | None,
-        well_index: int,
         image_shape: tuple[int, int],
     ) -> pd.DataFrame:
-        valid = np.asarray(props["valid"][well_index])
-        area_all = np.asarray(props["area"][well_index])
-        keep = valid & (area_all >= self.config.min_size)
+        """One well's table from its unpacked columns: its valid cells of at
+        least `min_size` pixels, numbered from 1 in slot order."""
+        keep = props["valid"] & (props["area"] >= self.config.min_size)
         if self.config.remove_edge_cells and self.config.method == "classical":
             # border cut from bboxes (skimage.segmentation.clear_border); the
             # unet method folds it into its mask tail
             h, w = image_shape
             keep &= (
-                (np.asarray(props["bbox_min_row"][well_index]) > 0)
-                & (np.asarray(props["bbox_min_col"][well_index]) > 0)
-                & (np.asarray(props["bbox_max_row"][well_index]) < h)
-                & (np.asarray(props["bbox_max_col"][well_index]) < w)
+                (props["bbox_min_row"] > 0)
+                & (props["bbox_min_col"] > 0)
+                & (props["bbox_max_row"] < h)
+                & (props["bbox_max_col"] < w)
             )
-        data: dict[str, np.ndarray] = {}
-        order = [
-            "label",
-            "area",
-            "centroid_y",
-            "centroid_x",
-            "perimeter",
-            "eccentricity",
-            "axis_major_length",
-            "axis_minor_length",
-            "orientation",
-            "extent",
-        ]
-        for name in order:
-            data[name] = np.asarray(props[name][well_index])[keep]
+        order = ["label", "area", "centroid_y", "centroid_x", "perimeter", "eccentricity",
+                 "axis_major_length", "axis_minor_length", "orientation", "extent"]
+        data = {name: props[name][keep] for name in order}
         # consecutive label numbering after the size cut
         data["label"] = np.arange(1, int(keep.sum()) + 1, dtype=np.int64)
         area = data["area"]
@@ -1101,31 +1008,8 @@ class PlateRunner:
         for ci, stats in intensity.items():
             suffix = channels[ci].name.lower() if channels else f"ch{ci}"
             for stat_name, values in stats.items():
-                data[f"{stat_name}_{suffix}"] = np.asarray(values[well_index])[keep]
+                data[f"{stat_name}_{suffix}"] = values[keep]
         return pd.DataFrame(data)
-
-    def _well_health_problem(
-        self, health: dict[str, np.ndarray], well_index: int, config: PlateRunConfig
-    ) -> tuple[str, str] | None:
-        """None when the well is trustworthy, else (kind, message); kind
-        "capacity" triggers a re-dispatch with escalated capacities."""
-        n_comp = int(health["num_components"][well_index])
-        if n_comp > config.max_cells:
-            return ("capacity", f"{n_comp} components exceed max_cells={config.max_cells}")
-        if bool(health["fg_overflow"][well_index]):
-            return (
-                "capacity",
-                "foreground pixels exceed the compaction capacity "
-                f"(fg_cap_fraction={config.fg_cap_fraction})",
-            )
-        if not bool(health["converged"][well_index]):
-            return (
-                "capacity",
-                "connected-components labeling did not converge (boundary-edge "
-                f"capacity pair_cap={config.pair_cap} exceeded, or pathological "
-                "component shapes); results would be unreliable",
-            )
-        return None
 
     def run(
         self,
@@ -1181,286 +1065,11 @@ class PlateRunner:
         """
         stages = StageTimer()
         with stages.stage("plate.run"):
-            tables, timings = self._run(layout, image_source, channels, show_progress, prefetch,
-                                        max_inflight, stages)
+            tables, timings = _PlateRun(self, layout, image_source, channels, prefetch,
+                                        max_inflight, stages)(show_progress)
         for span, key in _RUN_SPANS.items():
             timings[key] = stages.totals.get(span, 0.0)
         return PlateResults(tables, timings)
-
-    def _run(self, layout, image_source, channels, show_progress, prefetch, max_inflight,
-             stages: StageTimer) -> tuple[dict, dict]:
-        """`run`'s body: the tables and the prefetch workers' counters."""
-        if prefetch is None:
-            prefetch = os.cpu_count() or 1
-        timings = {
-            "decode_s": 0.0,
-            "decode_cpu_s": 0.0,
-            "decode_wells": 0.0,
-            "capacity_retries": 0.0,
-            "fill_s": 0.0,
-            "batches": 0.0,
-            "pinned_batches": 0.0,
-        }
-        shard = self._input_sharding()
-        spatial = shard.space_count > 1
-        lead = self.mesh.rank == int(self.mesh.devices.flat[0])
-
-        def resume() -> tuple[dict, dict]:
-            manifest = self._load_manifest()
-            cached = {w: self._load_well(manifest, w) for w in layout.well_ids}
-            return manifest, {w: t for w, t in cached.items() if t is not None}
-
-        manifest, cached = self._shared(resume() if lead else None)
-        tables: dict[str, pd.DataFrame | None] = {}
-        pending_ids: list[str] = []
-        for well_id in layout.well_ids:
-            if well_id in cached:
-                tables[well_id] = cached[well_id]
-            else:
-                pending_ids.append(well_id)
-
-        batch_size = self._batch_size()
-        batches = [pending_ids[i : i + batch_size] for i in range(0, len(pending_ids), batch_size)]
-
-        def fetch(well_id: str) -> np.ndarray | None:
-            try:
-                img = image_source(well_id) if callable(image_source) else image_source[well_id]
-                img = np.asarray(img)
-                if img.ndim == 2:
-                    img = img[None]
-                return img
-            except Exception as e:  # noqa: BLE001 - per-well isolation boundary
-                warnings.warn(
-                    f"Failed to load image for well {well_id}: {e}",
-                    SegmentationWarning,
-                    stacklevel=2,
-                )
-                return None
-
-        def dispatch(
-            images: list[np.ndarray], ok_ids: list[str], config: PlateRunConfig, retryable: bool,
-            slot: int | None = None,
-        ) -> dict | None:
-            """Stage this rank's share of one batch of same-shape wells
-            (from `slot` of the staging ring where a prefetch worker filled
-            it, else stacked here) and run the well program."""
-            ordinal = f"batch {next(batch_no)}"
-            timings["batches"] += 1
-            try:
-                rows, slab = self._slab(*images[0].shape[-2:])
-                if slot is not None:
-                    with stages.stage("plate.stage", args=ordinal):
-                        n = len(images)
-                    with stages.stage("plate.h2d", args=ordinal):
-                        staged = staging.upload(slot, n)
-                    timings["pinned_batches"] += 1
-                else:
-                    with stages.stage("plate.stage", args=ordinal):
-                        batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
-                    with stages.stage("plate.h2d", args=ordinal):
-                        staged = torch.from_numpy(batch).to(self.device)
-                with stages.stage("plate.launch", args=ordinal):
-                    program = _build_well_program(config, staged.shape[1], self.network,
-                                                  slab=slab, stages=stages)
-                    packed, health = program(staged)
-            except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
-                if spatial:  # the other slabs of these wells wait in its collectives
-                    raise
-                logger.exception("device batch failed for wells %s", ok_ids)
-                warnings.warn(
-                    f"Device batch failed for wells {ok_ids}: {e}",
-                    SegmentationWarning,
-                    stacklevel=3,
-                )
-                return {"failed": ok_ids}
-            return {
-                "ordinal": ordinal,
-                "images": images,
-                "ok_ids": ok_ids,
-                "config": config,
-                "retryable": retryable,
-                "packed": packed,
-                "health": health,
-                "image_shape": tuple(images[0].shape[-2:]),
-            }
-
-        batch_no = itertools.count()  # dispatches of this run, named in its ranges
-        # slots of this rank's wells of a whole batch
-        staging = _Staging(self, len(range(batch_size)[shard.batch_rows(batch_size)]))
-        retry_ids: list[str] = []
-        retry_images: dict[str, np.ndarray] = {}
-
-        def drain(recs: list[dict], failed: list[str]) -> None:
-            """Read this rank's dispatched batches back, gather every rank's
-            per-well results and turn them into tables (the same on every
-            rank)."""
-            entries: list[tuple[str, tuple | None]] = [(w, None) for w in failed]
-            owned: dict[str, np.ndarray] = {}
-            for rec in recs:
-                if "failed" in rec:
-                    entries += [(w, None) for w in rec["failed"]]
-                    continue
-                try:
-                    with stages.stage("plate.readback", args=rec["ordinal"]):
-                        packed_h = rec["packed"].cpu().numpy()
-                        health_h = rec["health"].cpu().numpy()
-                except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
-                    logger.exception("device batch failed for wells %s", rec["ok_ids"])
-                    warnings.warn(
-                        f"Device batch failed for wells {rec['ok_ids']}: {e}",
-                        SegmentationWarning,
-                        stacklevel=3,
-                    )
-                    entries += [(w, None) for w in rec["ok_ids"]]
-                    continue
-                for i, well_id in enumerate(rec["ok_ids"]):
-                    owned[well_id] = rec["images"][i]
-                    entries.append((well_id, (packed_h[i], health_h[i], rec["config"],
-                                              rec["retryable"], rec["image_shape"])))
-            merged: dict[str, tuple | None] = {}
-            with stages.stage("plate.gather"):
-                gathered = self._gather(entries)
-            for well_id, result in gathered:  # slabs of one well report alike
-                merged.setdefault(well_id, result)
-            with stages.stage("plate.assemble"):
-                for well_id, result in merged.items():
-                    if result is None:
-                        tables[well_id] = None
-                        continue
-                    packed_row, health_row, config, retryable, image_shape = result
-                    measure_idx = (
-                        config.measure_channel_indices
-                        if config.measure_channel_indices is not None
-                        else tuple(range((packed_row.shape[-1] - len(_PROP_COLUMNS))
-                                         // len(_INTENSITY_STATS)))
-                    )
-                    props_h, intensity_h, health_d = _unpack_outputs(
-                        packed_row[None], health_row[None], measure_idx
-                    )
-                    problem = self._well_health_problem(health_d, 0, config)
-                    if problem is not None:
-                        kind, message = problem
-                        if kind == "capacity" and retryable:
-                            retry_ids.append(well_id)
-                            if well_id in owned:
-                                retry_images[well_id] = owned[well_id]
-                            timings["capacity_retries"] += 1
-                            continue
-                        warnings.warn(f"Well {well_id}: {message}", SegmentationWarning,
-                                      stacklevel=2)
-                        tables[well_id] = None
-                        continue
-                    table = self._results_to_table(props_h, intensity_h, channels, 0, image_shape)
-                    tables[well_id] = table
-                    if lead:
-                        self._record_well(manifest, well_id, table)
-
-        def dispatch_by_shape(images, ok_ids, config, retryable, chunk: int,
-                              slot: int | None = None) -> list[dict]:
-            """Dispatch wells grouped by image shape (a well whose shape
-            differs gets its own dispatch instead of failing its
-            batchmates), at most `chunk` wells per dispatch; `slot` holds
-            all of `images`, staged."""
-            groups: dict[tuple, list[int]] = {}
-            for i, img in enumerate(images):
-                groups.setdefault(img.shape, []).append(i)
-            recs = []
-            for idxs in groups.values():
-                for k in range(0, len(idxs), chunk):
-                    part = idxs[k : k + chunk]
-                    rec = dispatch([images[i] for i in part], [ok_ids[i] for i in part],
-                                   config, retryable, slot if len(part) == len(images) else None)
-                    if rec is not None:
-                        recs.append(rec)
-            return recs
-
-        def load_batch(j: int):
-            """Decode this rank's block of batch j and stage it into its
-            slot of the ring (runs on a prefetch worker; touches no shared
-            state but the ring's turns). Wall and thread-CPU seconds of the
-            decode are summed per well, the fill's wall seconds per batch."""
-            batch_ids = batches[j]
-            images: list[np.ndarray] = []
-            ok_ids: list[str] = []
-            failed: list[str] = []
-            wall = cpu = 0.0
-            for well_id in batch_ids[shard.batch_rows(len(batch_ids))]:
-                t0, c0 = time.time(), time.thread_time()
-                img = fetch(well_id)
-                wall += time.time() - t0
-                cpu += time.thread_time() - c0
-                if img is None:
-                    failed.append(well_id)
-                else:
-                    images.append(img)
-                    ok_ids.append(well_id)
-            slot, fill = staging.fill(j, images)
-            return j, images, ok_ids, failed, slot, (wall, cpu, len(images) + len(failed), fill)
-
-        def submit(loaded, inflight: deque) -> None:
-            j, images, ok_ids, failed, slot, (wall, cpu, n, fill) = loaded
-            timings["decode_s"] += wall
-            timings["decode_cpu_s"] += cpu
-            timings["decode_wells"] += n
-            timings["fill_s"] += fill
-            if spatial:
-                n_ok = len(images)
-                images, ok_ids, failed = self._agree_on_slabs(images, ok_ids, failed)
-                if len(images) != n_ok:  # the slot holds wells no longer dispatched
-                    slot = None
-            inflight.append((dispatch_by_shape(images, ok_ids, self.config, True, batch_size,
-                                               slot), failed))
-            staging.done(j)
-            while len(inflight) > max_inflight:
-                drain(*inflight.popleft())
-
-        inflight: deque = deque()
-        progress = _progress_bar(len(batches)) if show_progress else None
-        try:
-            if prefetch > 0:
-                from concurrent.futures import ThreadPoolExecutor
-
-                with ThreadPoolExecutor(max_workers=prefetch) as pool:
-                    try:
-                        decoding = deque(pool.submit(load_batch, j)
-                                         for j in range(min(prefetch, len(batches))))
-                        next_idx = len(decoding)
-                        while decoding:
-                            with stages.stage("plate.fetch_wait"):
-                                loaded = decoding.popleft().result()
-                            if next_idx < len(batches):
-                                decoding.append(pool.submit(load_batch, next_idx))
-                                next_idx += 1
-                            submit(loaded, inflight)
-                            if progress is not None:
-                                progress.update(1)
-                    finally:
-                        staging.close()  # a failed run leaves no worker waiting on a slot
-            else:
-                for j in range(len(batches)):
-                    with stages.stage("plate.fetch_wait"):
-                        loaded = load_batch(j)
-                    submit(loaded, inflight)
-                    if progress is not None:
-                        progress.update(1)
-        finally:
-            if progress is not None:
-                progress.close()
-        while inflight:
-            drain(*inflight.popleft())
-
-        # capacity escalation: re-dispatch dense wells with 4x / 16x the
-        # capacities, each on the ranks that decoded it, grouped by shape
-        for level in (1, 2):
-            if not retry_ids:  # the same list on every rank
-                break
-            esc = self._escalated_config(level)
-            current = [w for w in retry_ids if w in retry_images]
-            retry_ids.clear()
-            images = [retry_images.pop(w) for w in current]
-            drain(dispatch_by_shape(images, current, esc, level < 2, batch_size), [])
-
-        return tables, timings
 
     def _agree_on_slabs(self, images, ok_ids, failed):
         """On a spatial mesh the ranks of a space group decode the same
@@ -1477,3 +1086,369 @@ class PlateRunner:
         keep = [i for i, w in enumerate(ok_ids) if w not in bad]
         return ([images[i] for i in keep], [ok_ids[i] for i in keep],
                 failed + [w for w in ok_ids if w in bad])
+
+
+def _well_health_problem(health: np.ndarray, config: PlateRunConfig) -> str | None:
+    """None when one well's health row (component count, foreground
+    overflow, CC certificate) vouches for its results, else what went
+    wrong: each is a capacity overflow, which a re-dispatch with escalated
+    capacities may cure."""
+    n_comp, fg_overflow, converged = (int(v) for v in health)
+    if n_comp > config.max_cells:
+        return f"{n_comp} components exceed max_cells={config.max_cells}"
+    if fg_overflow > 0:
+        return (
+            "foreground pixels exceed the compaction capacity "
+            f"(fg_cap_fraction={config.fg_cap_fraction})"
+        )
+    if converged <= 0:
+        return (
+            "connected-components labeling did not converge (boundary-edge "
+            f"capacity pair_cap={config.pair_cap} exceeded, or pathological "
+            "component shapes); results would be unreliable"
+        )
+    return None
+
+
+class _PlateRun:
+    """One call of `PlateRunner.run`: its state, its main thread's steps and
+    its prefetch workers' turns on the runner's staging ring.
+
+    A worker decodes this rank's block of batch j (`_load`) and copies it
+    into slot j % STAGING_SLOTS of the ring (`_fill`). The main thread
+    dispatches the batches in order (`_submit`), uploading each from its
+    slot or stacking it (`_upload`), drains them at most `max_inflight`
+    behind (`_drain`: read back, gather, one table per well), and then
+    re-dispatches dense wells at escalated capacities (`_escalate`).
+
+    Batch j may fill its slot once the main thread has dispatched batch
+    j - STAGING_SLOTS and the copy out of the slot has completed; the main
+    thread hands each slot on in batch order (`_done`), whether or not the
+    batch took it, so a worker waits only for a batch dispatched before its
+    own. On the CPU the slots are ordinary memory, and the well program,
+    which reads the slot itself there, has returned before `_done`."""
+
+    def __init__(self, runner: PlateRunner, layout: MicroplateLayout, image_source, channels,
+                 prefetch: int | None, max_inflight: int, stages: StageTimer):
+        self.runner, self.source, self.channels = runner, image_source, channels
+        self.prefetch = (os.cpu_count() or 1) if prefetch is None else prefetch
+        self.max_inflight, self.stages = max_inflight, stages
+        self.timings = dict.fromkeys(
+            ("decode_s", "decode_cpu_s", "decode_wells", "capacity_retries", "fill_s", "batches",
+             "pinned_batches"), 0.0)
+        self.shard = runner._input_sharding()
+        self.spatial = self.shard.space_count > 1
+        self.lead = runner.mesh.rank == int(runner.mesh.devices.flat[0])
+        self.manifest, cached = runner._shared(self._resume(layout) if self.lead else None)
+        self.tables: dict[str, pd.DataFrame | None] = {
+            w: cached[w] for w in layout.well_ids if w in cached}
+        pending = [w for w in layout.well_ids if w not in cached]
+        self.batch_size = size = runner._batch_size()
+        self.batches = [pending[i : i + size] for i in range(0, len(pending), size)]
+        self.inflight: deque = deque()  # (dispatch records, wells failed to load) per batch
+        self.batch_no = itertools.count()  # dispatches of this run, named in its ranges
+        self.programs: dict[tuple, tuple] = {}  # (config, (C, H, W)) -> `runner._program`
+        self.retry_ids: list[str] = []
+        self.retry_images: dict[str, np.ndarray] = {}
+        # the staging turns; a slot holds this rank's wells of a whole batch
+        self.wells = len(range(size)[self.shard.batch_rows(size)])
+        self.ring: _StagingRing | None = None  # chosen by the run's first uniform batch
+        self.turn = list(range(STAGING_SLOTS))
+        self.held: list[list[str] | None] = [None] * STAGING_SLOTS  # the wells in each slot
+        self.closed = False
+        self.cond = threading.Condition()
+
+    def __call__(self, show_progress: bool) -> tuple[dict, dict]:
+        """Every batch, then the capacity retries: the tables and the run's
+        counters."""
+        progress = get_tqdm()(total=len(self.batches), desc="Plate", disable=not show_progress)
+        try:
+            if self.prefetch > 0:
+                with ThreadPoolExecutor(max_workers=self.prefetch) as pool:
+                    try:
+                        ahead = min(self.prefetch, len(self.batches))
+                        decoding = deque(pool.submit(self._load, j) for j in range(ahead))
+                        while decoding:
+                            with self.stages.stage("plate.fetch_wait"):
+                                loaded = decoding.popleft().result()
+                            if ahead < len(self.batches):
+                                decoding.append(pool.submit(self._load, ahead))
+                                ahead += 1
+                            self._submit(*loaded)
+                            progress.update(1)
+                    finally:
+                        self._close()  # a failed run leaves no worker waiting on a slot
+            else:
+                for j in range(len(self.batches)):
+                    with self.stages.stage("plate.fetch_wait"):
+                        loaded = self._load(j)
+                    self._submit(*loaded)
+                    progress.update(1)
+        finally:
+            progress.close()
+        while self.inflight:
+            self._drain(*self.inflight.popleft())
+        self._escalate()
+        return self.tables, self.timings
+
+    def _resume(self, layout: MicroplateLayout) -> tuple[dict, dict]:
+        """The checkpoint's manifest and its tables of `layout`'s wells."""
+        manifest = self.runner._load_manifest()
+        cached = {w: self.runner._load_well(manifest, w) for w in layout.well_ids}
+        return manifest, {w: t for w, t in cached.items() if t is not None}
+
+    # -- prefetch workers ---------------------------------------------------------
+
+    def _fetch(self, well_id: str) -> np.ndarray | None:
+        """One well's (C, H, W) image; None, with a warning, where it fails
+        to load."""
+        try:
+            img = self.source(well_id) if callable(self.source) else self.source[well_id]
+            img = np.asarray(img)
+            return img[None] if img.ndim == 2 else img
+        except Exception as e:  # noqa: BLE001 - per-well isolation boundary
+            warnings.warn(
+                f"Failed to load image for well {well_id}: {e}",
+                SegmentationWarning,
+                stacklevel=2,
+            )
+            return None
+
+    def _load(self, j: int) -> tuple:
+        """Decode this rank's block of batch j and stage it into its slot
+        (on a prefetch worker, touching no state of the run but the staging
+        turns): `_submit`'s arguments. Wall and thread-CPU seconds of the
+        decode are summed per well, the fill's wall seconds per batch."""
+        batch_ids = self.batches[j]
+        images: list[np.ndarray] = []
+        ok_ids: list[str] = []
+        failed: list[str] = []
+        wall = cpu = 0.0
+        for well_id in batch_ids[self.shard.batch_rows(len(batch_ids))]:
+            t0, c0 = time.time(), time.thread_time()
+            img = self._fetch(well_id)
+            wall += time.time() - t0
+            cpu += time.thread_time() - c0
+            if img is None:
+                failed.append(well_id)
+            else:
+                images.append(img)
+                ok_ids.append(well_id)
+        slot, fill = self._fill(j, images, ok_ids)
+        return j, images, ok_ids, failed, slot, (wall, cpu, len(images) + len(failed), fill)
+
+    def _fill(self, j: int, images: list[np.ndarray],
+              ok_ids: list[str]) -> tuple[int | None, float]:
+        """Stage batch j's wells (this rank's rows of them) into its slot:
+        the slot and the copy's wall seconds, or (None, 0.0) where the batch
+        takes none: a device neither CUDA nor the CPU, no wells, wells of
+        several shapes or not uint16, or a shape other than the ring's."""
+        runner = self.runner
+        skip = None, 0.0
+        first = images[0] if images else None
+        if (runner.device.type not in ("cuda", "cpu") or first is None
+                or any(img.shape != first.shape or img.dtype != np.uint16 for img in images)):
+            return skip
+        try:
+            rows, _ = runner._slab(*first.shape[-2:])
+        except ValueError:  # a well too small for its slabs fails in dispatch
+            return skip
+        h, w = first.shape[-2:]
+        shape = (self.wells, *first.shape[:-2], len(range(h)[rows]), w)
+        with self.cond:
+            if self.ring is None:  # the runner's, unless its shape differs
+                ring = runner._staging
+                if ring is None or ring.shape != shape:
+                    runner._staging = None  # unpin the old ring before pinning anew
+                    ring = runner._staging = _StagingRing(
+                        shape, pinned=runner.device.type == "cuda")
+                self.ring = ring
+            if self.ring.shape != shape or len(images) > self.wells:
+                return skip
+            k = j % STAGING_SLOTS
+            self.cond.wait_for(lambda: self.closed or self.turn[k] == j)
+            if self.closed:
+                return skip
+        event = self.ring.events[k]
+        if event is not None:
+            event.synchronize()
+        t0 = time.time()
+        for dst, img in zip(self.ring.arrays[k], images):
+            np.copyto(dst, img[..., rows, :])
+        self.held[k] = ok_ids
+        return k, time.time() - t0
+
+    def _done(self, j: int) -> None:
+        """Batch j is dispatched: its slot goes to batch j + STAGING_SLOTS."""
+        with self.cond:
+            self.turn[j % STAGING_SLOTS] = j + STAGING_SLOTS
+            self.cond.notify_all()
+
+    def _close(self) -> None:
+        """Release every worker still waiting for a slot (the run ended)."""
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+
+    # -- the main thread ----------------------------------------------------------
+
+    def _submit(self, j: int, images: list[np.ndarray], ok_ids: list[str], failed: list[str],
+                slot: int | None, counters: tuple[float, ...]) -> None:
+        """Dispatch a loaded batch, hand its slot on, and drain the batches
+        past `max_inflight`."""
+        for key, value in zip(("decode_s", "decode_cpu_s", "decode_wells", "fill_s"), counters):
+            self.timings[key] += value
+        if self.spatial:
+            images, ok_ids, failed = self.runner._agree_on_slabs(images, ok_ids, failed)
+        recs = self._dispatch_by_shape(images, ok_ids, self.runner.config, True, slot)
+        self.inflight.append((recs, failed))
+        self._done(j)
+        while len(self.inflight) > self.max_inflight:
+            self._drain(*self.inflight.popleft())
+
+    def _dispatch_by_shape(self, images: list[np.ndarray], ok_ids: list[str],
+                           config: PlateRunConfig, retryable: bool,
+                           slot: int | None = None) -> list[dict]:
+        """Dispatch wells grouped by image shape (a well whose shape differs
+        gets its own dispatch instead of failing its batchmates), at most a
+        batch per dispatch."""
+        groups: dict[tuple, list[int]] = {}
+        for i, img in enumerate(images):
+            groups.setdefault(img.shape, []).append(i)
+        recs = []
+        for idxs in groups.values():
+            for k in range(0, len(idxs), self.batch_size):
+                part = idxs[k : k + self.batch_size]
+                recs.append(self._dispatch([images[i] for i in part], [ok_ids[i] for i in part],
+                                           config, retryable, slot))
+        return recs
+
+    def _dispatch(self, images: list[np.ndarray], ok_ids: list[str], config: PlateRunConfig,
+                  retryable: bool, slot: int | None) -> dict:
+        """Upload this rank's share of one batch of same-shape wells and
+        launch the well program on it: the batch's record for `_drain`."""
+        ordinal = f"batch {next(self.batch_no)}"
+        self.timings["batches"] += 1
+        shape = images[0].shape
+        try:
+            key = (config, shape)
+            if key not in self.programs:
+                self.programs[key] = self.runner._program(config, shape[0], shape[-2:], self.stages)
+            rows, program = self.programs[key]
+            staged = self._upload(images, ok_ids, rows, slot, ordinal)
+            with self.stages.stage("plate.launch", args=ordinal):
+                packed, health = program(staged)
+        except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
+            if self.spatial:  # the other slabs of these wells wait in its collectives
+                raise
+            _batch_failed(ok_ids, e)
+            return {"failed": ok_ids}
+        return {
+            "ordinal": ordinal,
+            "images": images,
+            "ok_ids": ok_ids,
+            # what each well's result carries after its packed and health rows
+            "result": (config, _PackedColumns.of(config, shape[0]), retryable, tuple(shape[-2:])),
+            "packed": packed,
+            "health": health,
+        }
+
+    def _upload(self, images: list[np.ndarray], ok_ids: list[str], rows: slice,
+                slot: int | None, ordinal: str) -> torch.Tensor:
+        """The batch's rows on the device, enqueued on its current stream:
+        copied from staging slot `slot` where a worker filled it with these
+        very wells (a CUDA card's copy out of the slot is non-blocking, and
+        the slot's event follows it), else stacked here - a batch of several
+        shapes, wells `_agree_on_slabs` dropped, a capacity retry."""
+        if slot is None or self.held[slot] != ok_ids:
+            with self.stages.stage("plate.stage", args=ordinal):
+                batch = np.ascontiguousarray(np.stack(images)[..., rows, :])
+            with self.stages.stage("plate.h2d", args=ordinal):
+                return torch.from_numpy(batch).to(self.runner.device)
+        with self.stages.stage("plate.stage", args=ordinal):
+            n = len(images)
+        with self.stages.stage("plate.h2d", args=ordinal):
+            staged = self.ring.slots[slot][:n].to(self.runner.device, non_blocking=True)
+            if staged.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(staged.device))
+                self.ring.events[slot] = event
+        self.timings["pinned_batches"] += 1
+        return staged
+
+    def _drain(self, recs: list[dict], failed: list[str]) -> None:
+        """Read this rank's dispatched batches back, gather every rank's
+        per-well results and assemble them (the same on every rank)."""
+        entries: list[tuple[str, tuple | None]] = [(w, None) for w in failed]
+        owned: dict[str, np.ndarray] = {}
+        for rec in recs:
+            if "failed" in rec:
+                entries += [(w, None) for w in rec["failed"]]
+                continue
+            try:
+                with self.stages.stage("plate.readback", args=rec["ordinal"]):
+                    packed = rec["packed"].cpu().numpy()
+                    health = rec["health"].cpu().numpy()
+            except Exception as e:  # noqa: BLE001 - per-batch isolation boundary
+                _batch_failed(rec["ok_ids"], e)
+                entries += [(w, None) for w in rec["ok_ids"]]
+                continue
+            for i, well_id in enumerate(rec["ok_ids"]):
+                owned[well_id] = rec["images"][i]
+                entries.append((well_id, (packed[i], health[i], *rec["result"])))
+        with self.stages.stage("plate.gather"):
+            gathered = self.runner._gather(entries)
+        merged: dict[str, tuple | None] = {}
+        for well_id, result in gathered:  # slabs of one well report alike
+            merged.setdefault(well_id, result)
+        with self.stages.stage("plate.assemble"):
+            for well_id, result in merged.items():
+                self._assemble(well_id, result, owned.get(well_id))
+
+    def _assemble(self, well_id: str, result: tuple | None, image: np.ndarray | None) -> None:
+        """Well `well_id`'s table from its gathered result (None: the well
+        failed), or a capacity retry where its health asks for one; `image`
+        is this rank's decode of the well, if it has one."""
+        if result is None:
+            self.tables[well_id] = None
+            return
+        packed, health, config, columns, retryable, image_shape = result
+        problem = _well_health_problem(health, config)
+        if problem is not None:
+            if retryable:
+                self.retry_ids.append(well_id)
+                if image is not None:
+                    self.retry_images[well_id] = image
+                self.timings["capacity_retries"] += 1
+            else:
+                warnings.warn(f"Well {well_id}: {problem}", SegmentationWarning, stacklevel=2)
+                self.tables[well_id] = None
+            return
+        props, intensity = columns.unpack(packed)
+        table = self.runner._results_to_table(props, intensity, self.channels, image_shape)
+        self.tables[well_id] = table
+        if self.lead:
+            self.runner._record_well(self.manifest, well_id, table)
+
+    def _escalate(self) -> None:
+        """Re-dispatch the dense wells with 4x and then 16x the capacities,
+        each on the ranks that decoded it, grouped by shape."""
+        for level in (1, 2):
+            if not self.retry_ids:  # the same list on every rank
+                break
+            config = self.runner._escalated_config(level)
+            current = [w for w in self.retry_ids if w in self.retry_images]
+            self.retry_ids.clear()
+            images = [self.retry_images.pop(w) for w in current]
+            self._drain(self._dispatch_by_shape(images, current, config, level < 2), [])
+
+
+def _batch_failed(ok_ids: list[str], error: Exception) -> None:
+    """Log and warn that a batch's device work failed (from its except
+    block)."""
+    logger.exception("device batch failed for wells %s", ok_ids)
+    warnings.warn(
+        f"Device batch failed for wells {ok_ids}: {error}",
+        SegmentationWarning,
+        stacklevel=3,
+    )

@@ -1,12 +1,28 @@
 """Logging and progress utilities (`configure_logging` and `get_tqdm`,
-copied from the JAX package's `utils/__init__.py`); `utils.profiling` has
-the stage timer and the device trace."""
+copied from the JAX package's `utils/__init__.py`) and the port's device
+choice (`resolve_device`); `utils.profiling` has the stage timer and the
+device trace."""
 
 from __future__ import annotations
 
 import logging
 
-__all__ = ["configure_logging", "get_tqdm"]
+import torch
+
+__all__ = ["configure_logging", "get_tqdm", "resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. Raises when no CUDA device exists and none was named."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def configure_logging(verbose: bool) -> None:

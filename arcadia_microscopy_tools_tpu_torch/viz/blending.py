@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from ..core.channels import Channel
-from ..parallel.plate import resolve_device
 from ..typing import Float64Array
+from ..utils import resolve_device
 
 __all__ = ["BlendMode", "Layer", "create_overlay", "overlay_channels"]
 

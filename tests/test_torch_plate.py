@@ -114,11 +114,15 @@ def test_staged_branch_matches_jax(wells, kwargs):
     _assert_programs_agree(wells, config, ties)
 
 
-def test_plate_runner_tables_match_jax(wells):
+@pytest.mark.parametrize("measure", [None, (1, 0)], ids=["all", "reordered"])
+def test_plate_runner_tables_match_jax(wells, measure):
+    """The tables of both runners agree, also where `measure_channel_indices`
+    picks the channels in another order."""
+    config = dataclasses.replace(CONFIG, measure_channel_indices=measure)
     ids = ["A01", "A02"]
     source = {w: wells[k] for k, w in enumerate(ids)}
-    ours = plate.PlateRunner(CONFIG, device="cpu").run(_layout(ids), source)
-    jax_config = jax_plate.PlateRunConfig(**dataclasses.asdict(CONFIG))
+    ours = plate.PlateRunner(config, device="cpu").run(_layout(ids), source)
+    jax_config = jax_plate.PlateRunConfig(**dataclasses.asdict(config))
     ref = jax_plate.PlateRunner(jax_config).run(_layout(ids, JaxLayout, JaxWell), source)
     assert not ours.failed_wells and not ref.failed_wells
     ties = _ties(wells)
@@ -131,7 +135,7 @@ def test_plate_runner_tables_match_jax(wells):
                 continue
             np.testing.assert_allclose(a[col], b[col], rtol=RTOL, atol=ATOL, err_msg=col)
         # table rows are the valid cells with area >= min_size, in slot order
-        packed, _ = plate._build_well_program(CONFIG, 2)(torch.from_numpy(wells[k : k + 1]))
+        packed, _ = plate._build_well_program(config, 2)(torch.from_numpy(wells[k : k + 1]))
         cols = plate._PROP_COLUMNS
         keep = (packed[0, :, cols.index("valid")] > 0.5) & (packed[0, :, cols.index("area")] >= 20)
         _orientation_check(

@@ -49,15 +49,22 @@ def _assert_same_tables(ours, ref):
             pd.testing.assert_frame_equal(ours[well_id], table, check_exact=True)
 
 
-@pytest.mark.parametrize("method", ["classical", "unet"])
-@pytest.mark.parametrize("prefetch", [2, None])
-def test_staged_tables_equal_the_serial_run(wells, method, prefetch):
+@pytest.mark.parametrize(
+    "prefetch, method, max_inflight",
+    [(2, "classical", 4), (2, "unet", 4), (None, "classical", 4), (None, "unet", 4),
+     (2, "classical", 1)],
+    ids=["2-classical", "2-unet", "None-classical", "None-unet", "2-classical-inflight1"],
+)
+def test_staged_tables_equal_the_serial_run(wells, method, prefetch, max_inflight):
     """Every batch comes from a slot its worker filled, and the tables equal
-    a run whose main thread loads and stages each batch in turn."""
+    a run whose main thread loads and stages each batch in turn; with
+    `max_inflight=1` each batch is drained as soon as the next is
+    dispatched."""
     config = dataclasses.replace(CONFIG, method=method, niter=20)
     serial = plate.PlateRunner(config, device="cpu").run(_layout(IDS), wells, prefetch=0)
     results = plate.PlateRunner(config, device="cpu").run(_layout(IDS), wells,
-                                                          prefetch=prefetch)
+                                                          prefetch=prefetch,
+                                                          max_inflight=max_inflight)
     assert results.failed_wells == []
     _assert_same_tables(results.tables, serial.tables)
     for res in (serial, results):
