@@ -1,5 +1,5 @@
 """The deep segmentation path: U-Net forward (models/unet.py) on the fused
-conv and GroupNorm-moments kernels, flow tracking and flow-error QC
+conv, GroupNorm-moments and block-tail kernels, flow tracking and flow-error QC
 (models/flows.py) on the diffusion kernel, the `SegmentationModel`
 wrapper, synthetic cell images (models/synthetic.py), the trainer
 (models/train.py) and the space-to-depth forward (models/unet_s2d.py;

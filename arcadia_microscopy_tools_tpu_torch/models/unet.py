@@ -8,20 +8,23 @@ Tensors are NHWC (B, H, W, C), as in the JAX package.
 The forward has the plain geometry of `apply_unet`, built from the fused
 blocks of the JAX package's `unet_s2d.py`. The space-to-depth form itself
 is `models/unet_s2d.py`, the slower of the two on an H100 (`chip_smoke.py`
-phase 15: 163.3-163.9 ms per batch of 8 2048^2 wells against this
-forward's 148.7-150.0, its 13 conv calls 65.1-65.7 ms against these 16
-calls' 36.5-36.6), so the plate runner and `SegmentationModel` run this
-one. The blocks:
+phase 15, with both forwards' tails in kernel 9: 115.2-116.8 ms per batch
+of 8 2048^2 wells against this forward's 85.6-86.0, its 13 conv calls
+66.7 ms against these 16 calls' 36.5), so the plate runner and
+`SegmentationModel` run this one. The blocks:
 
 - every stride-1 3x3 conv with an activation input runs through
   `conv3x3_fused` (the CUDA kernel on the card): conv1 emits the moments of
   GN1, GN1 + ReLU ride conv2's prologue, conv2 emits the moments of GN2;
-- the block tail applies GN2's affine, adds the residual and takes the
-  ReLU in one elementwise pass, with the rounding points of `_fused_tail`;
+- the block tail applies GN2's affine, adds the residual, takes the ReLU
+  and, in the decoder, adds the style row in one elementwise pass over
+  conv2's output (`tail_cuda.unet_tail`, kernel 9 on the card), with the
+  rounding points of `_fused_tail`;
 - in the decoder, conv(concat(up, skip)) is split into conv(up, W_up)
   followed by conv(skip, W_skip, accum=...), so the concatenation is never
   built; the 1x1 projection is split the same way, its up part taken before
-  the nearest upsample (the two commute exactly);
+  the nearest upsample (the two commute exactly), which the tail reads at
+  half resolution, so the upsampled projection is never built either;
 - the one 3x3 conv with a 3-channel input (down0.conv1) is a float32
   `F.conv2d` rounded to the compute dtype, and its GN moments come from the
   `lane_moments` kernel;
@@ -83,6 +86,7 @@ from .conv_cuda import (
     sum_partials,
 )
 from .gn_cuda import lane_chunks, lane_moments, lane_moments_plain
+from .tail_cuda import unet_tail, unet_tail_plain
 
 __all__ = ["SlabRows", "UNet", "UNetConfig"]
 
@@ -290,10 +294,13 @@ class _FusedBlocks:
         _, _, wd, co = y.shape
         return y, rows.sums(part, level, lambda h: moment_tiles(h, wd, co))
 
-    def _tail(self, blk: nn.Module, y1, m1, skip, rows: _Rows, level: int):
+    def _tail(self, blk: nn.Module, y1, m1, skip, rows: _Rows, level: int, up=None, style=None):
         """GN1 + ReLU folded into conv2's prologue, conv2 with GN2 moments,
         then GN2 affine + residual + ReLU (rounding points of the JAX
-        package's `_fused_tail`)."""
+        package's `_fused_tail`) and the style add, in one pass written
+        over conv2's output: `unet_tail` (kernel 9 on the card) in
+        bfloat16, its plain version in any other dtype. The residual is
+        `skip`, or with `up` the decoder's split projection."""
         dt, groups = self.config.compute_dtype, self.config.groups
         _, _, w, c = y1.shape
         n = rows.full(level) * w * (c // min(groups, c))
@@ -302,14 +309,8 @@ class _FusedBlocks:
             rows, y1, blk.conv2.to(dt), level, moments=True, prologue=(sc1, bi1), relu=True
         )
         sc2, bi2 = gn_affine_params(m2[0], m2[1], blk.gn2_scale, blk.gn2_bias, groups, n)
-        f = y2.float()
-        del y2
-        # in place: at 2048^2 x 8 x 32 channels each float32 temporary is 4.3 GB
-        f.mul_(sc2[:, None, None, :]).add_(bi2[:, None, None, :])
-        out = f.to(dt)
-        del f
-        out += skip.to(dt)
-        return out.relu_()
+        tail = unet_tail if dt == torch.bfloat16 else unet_tail_plain
+        return tail(y2, sc2, bi2, skip.to(dt), up=up, style=style, out=y2)
 
 
 class UNet(_FusedBlocks, nn.Module):
@@ -438,8 +439,9 @@ class UNet(_FusedBlocks, nn.Module):
             y1, m1 = self._conv_rows(rows, skip_t, w(blk.conv1[..., c_up:]), level, moments=True,
                                      accum=a)
             del a
-            skip = _upsample2(h @ w(blk.proj[:c_up])) + skip_t @ w(blk.proj[c_up:])
-            h = self._tail(blk, y1, m1, skip, rows, level)
-            del y1, skip
-            h += (style @ self.style_proj[i]).to(dt)[:, None, None, :]
+            up = h @ w(blk.proj[:c_up])
+            skip = skip_t @ w(blk.proj[c_up:])
+            h = self._tail(blk, y1, m1, skip, rows, level, up=up,
+                           style=(style @ self.style_proj[i]).to(dt))
+            del y1, up, skip
         return _project(h, w(self.head)).float() + self.head_bias

@@ -12,7 +12,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its lines:
 
 1. device - the card's name and `nvidia-smi` name / power limit;
-2. build - the seven CUDA kernels of `csrc/` (six libraries), compiled with
+2. build - the nine CUDA kernels of `csrc/` (eight libraries), compiled with
    nvcc for sm_90a, one nvcc per source, all started together, with their
    ptxas reports; beside them the host library of `native/amt_host.cpp`
    (g++; the ND2 planarize);
@@ -164,7 +164,15 @@ Phases, each printing its lines:
    here); then `batch_segment(network="cpsam", return_flows=True)` again:
    kernel 8's launches (24 per micro-batch), the call's time and its
    stages;
-17. the `kernels` JSON line, then the card's name and power limit, then
+17. U-Net block tail (models/tail_cuda.py, csrc/unet_tail.cu) - kernel 9
+   at each of the seven tails of one 8 x 2048^2 forward (the encoder's
+   one residual, the decoder's split residual and style row) on random
+   operands, bit for bit against its plain version, timed beside its bytes
+   bound and the plain version, the PyTorch sequence the forward ran
+   before it (the library yardstick); phases 5 and 7 check that the
+   segmentation and U-Net plate paths launch it, phases 7 and 12 that the
+   float32 forward and the trainer do not;
+18. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -213,7 +221,7 @@ CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
 RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
                  (225, "bisection on staged keys"))
 KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select",
-                    "percentile_stretch", "sam_attention"]
+                    "percentile_stretch", "sam_attention", "unet_tail"]
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "tests" / "data"
 ND2_CHANNELS = ["DAPI", "FITC", "TRITC", "CY5"]
@@ -316,6 +324,7 @@ def port_modules() -> SimpleNamespace:
         flows_cuda,
         gn_cuda,
         stretch_cuda,
+        tail_cuda,
         train,
         unet,
         unet_s2d,
@@ -330,20 +339,23 @@ def port_modules() -> SimpleNamespace:
 
     return SimpleNamespace(**{m.__name__.rsplit(".", 1)[-1]: m for m in (
         _build, _native, masks, operations, testing, microplate, microscopy, leica, lif, nd2, nikon,
-        conv_cuda, flows, flows_cuda, gn_cuda, stretch_cuda, train, unet, unet_s2d, weights,
+        conv_cuda, flows, flows_cuda, gn_cuda, stretch_cuda, tail_cuda, train, unet, unet_s2d,
+        weights,
         cc_cuda, compaction, filters, fused, labeling, morphology, rank_cuda, regionprops,
         threshold, plate, profiling, blending,
     )}, pkg=pkg)
 
 
 def reset_all_counts(m) -> None:
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda,
+                m.tail_cuda):
         mod.reset_launch_counts()
 
 
 def all_counts(m) -> dict[str, int]:
     out = {}
-    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda):
+    for mod in (m.cc_cuda, m.conv_cuda, m.gn_cuda, m.flows_cuda, m.rank_cuda, m.stretch_cuda,
+                m.tail_cuda):
         out.update(mod.launch_counts)
     return out
 
@@ -953,6 +965,68 @@ def bf16_steps(err: float, ref: torch.Tensor) -> float:
 SAM_ATTENTION_STEPS = 2.0
 
 
+def unet_tail_shapes(b: int, size: int, nb=(32, 64, 128, 256)) -> list[tuple]:
+    """The seven block tails of one forward of b images of size^2: (name,
+    (B, H, W, C), split) with `split` for the decoder's split residual and
+    style row."""
+    enc = [(f"down{i}", (b, size >> i, size >> i, c), False) for i, c in enumerate(nb)]
+    dec = [(f"up{i}", (b, size >> lv, size >> lv, nb[lv]), True)
+           for i, lv in enumerate(reversed(range(len(nb) - 1)))]
+    return enc + dec
+
+
+def unet_tail_phase(m, dev, b: int, size: int, launches: int, timed, say, smi: str) -> dict:
+    """Phase 17: kernel 9 at each of the seven tails of one forward of b
+    images of size^2, on random operands: bit for bit against its plain
+    version (int16 views), then timed by CUDA events into a separate output
+    beside its bytes bound (each operand read once, the output written
+    once) and the plain version, which is the PyTorch sequence the forward
+    ran before the kernel (so it is the library yardstick too). Returns
+    kernel 9's entry of the `kernels` line."""
+    tc = m.tail_cuda
+    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0}
+    g = torch.Generator(device=dev).manual_seed(17)
+    for name, (n, h, w, c), split in unet_tail_shapes(b, size):
+        bf = torch.bfloat16
+        y = torch.randn((n, h, w, c), generator=g, device=dev).mul_(3).to(bf)
+        skip = torch.randn((n, h, w, c), generator=g, device=dev).to(bf)
+        scale = torch.randn((n, c), generator=g, device=dev).add_(1)
+        bias = torch.randn((n, c), generator=g, device=dev).mul_(0.5)
+        up = style = None
+        if split:
+            up = torch.randn((n, h // 2, w // 2, c), generator=g, device=dev).to(bf)
+            style = torch.randn((n, c), generator=g, device=dev).mul_(0.3).to(bf)
+        want = tc.unet_tail_plain(y, scale, bias, skip, up=up, style=style)
+        got = tc.unet_tail(y, scale, bias, skip, up=up, style=style)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            raise RuntimeError(f"unet_tail {name}: {bad} values differ from the plain version")
+        del want
+        ms, plain_ms = timed(
+            lambda: tc.unet_tail(y, scale, bias, skip, up=up, style=style, out=got),
+            lambda: tc.unet_tail_plain(y, scale, bias, skip, up=up, style=style))
+        nbytes = sum(t.numel() * t.element_size() for t in (y, skip, got, scale, bias, up, style)
+                     if t is not None)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        tot["ms"] += ms
+        tot["plain"] += plain_ms
+        tot["bound"] += b_ms
+        say(f"[time] unet_tail {name} {(n, h, w, c)} {'split skip and style' if split else 'skip'}: "
+            f"{ms:.4f} ms; bound {b_ms:.4f} ms (bytes: {nbytes / 1e9:.3f} GB), {b_ms / ms:.1%} of "
+            f"it reached; plain (the PyTorch sequence it replaced) {plain_ms:.4f} ms; bit for bit")
+        del y, skip, scale, bias, up, style, got
+    say(f"[time] unet_tail (kernel 9), all 7 tails of one forward: {tot['ms']:.4f} ms "
+        f"({tot['bound'] / tot['ms']:.1%} of its {tot['bound']:.4f} ms bound, bytes); plain "
+        f"(the PyTorch sequence it replaced) {tot['plain']:.3f} ms; launches on the segmentation "
+        f"path {launches}; card: {smi}")
+    return {
+        "name": "unet_tail", "route": "cuda",
+        "source": f"{CSRC}/unet_tail.cu", "replaces": None, "launches": launches,
+        "max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+        "bound_by": "bytes", "library_ms": tot["plain"],
+    }
+
+
 def cellpose_sam_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say, smi: str) -> dict:
     """Phase 16: `batch_segment(network="cpsam")` on the wells' first three
     channels with seeded weights, once to build and to capture the qkv of
@@ -1411,7 +1485,7 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     if min(cells) <= 0:
         raise RuntimeError("an image has no cells")
     seg_kernels = ("local_cc", "local_resweep", "conv3x3_fused", "lane_moments", "diffuse",
-                   "percentile_stretch")
+                   "percentile_stretch", "unet_tail")
     if not rehearsal and min(seg_launches[k] for k in seg_kernels) <= 0:
         raise RuntimeError(f"the segmentation path did not launch every kernel: {seg_launches}")
     if model.stages.counts.get("segment.prepare.host"):
@@ -1637,9 +1711,9 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         raise RuntimeError(f"implausible U-Net cell counts {unet_counts} for {blobs} blobs per well")
     if not np.isfinite(unet_results.to_dataframe().drop(columns=["well_id"]).to_numpy(float)).all():
         raise RuntimeError("non-finite values in the U-Net plate tables")
-    unet_kernels = ("conv3x3_fused", "lane_moments", "diffuse")
+    unet_kernels = ("conv3x3_fused", "lane_moments", "diffuse", "unet_tail")
     if not rehearsal and min(unet_launches[k] for k in unet_kernels) <= 0:
-        raise RuntimeError(f"the U-Net plate path did not launch kernels 4-6: {unet_launches}")
+        raise RuntimeError(f"the U-Net plate path did not launch kernels 4-6 and 9: {unet_launches}")
 
     # well 0 stage by stage: the stretch, then the card's network output through
     # the compact tail on the card and on the CPU, then the measurement
@@ -1704,7 +1778,8 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
         d32 = float((out32_card - out32_cpu).abs().max())
         say(f"[check] {check_size}^2 float32 forward card vs CPU: max abs {d32:.3g}, output scale "
             f"{scale:.4g} (limit 1e-3 of scale); kernel launches {f32_launches}")
-        if d32 > 1e-3 * scale or any(f32_launches[k] for k in ("conv3x3_fused", "lane_moments")):
+        if d32 > 1e-3 * scale or any(f32_launches[k] for k in ("conv3x3_fused", "lane_moments",
+                                                                "unet_tail")):
             raise RuntimeError("the float32 forward on the card differs from the CPU or launched "
                                "a bfloat16 kernel")
         del f32_nets, out32_card, out32_cpu
@@ -1998,7 +2073,7 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
             f"s, {train_s * 1e3 / t_steps:.3f} ms per step; losses {[round(v, 4) for v in losses]}; "
             f"launches {train_launches}")
         if not rehearsal and (train_launches["diffuse"] != t_steps or train_launches["conv3x3_fused"]
-                              or train_launches["lane_moments"]):
+                              or train_launches["lane_moments"] or train_launches["unet_tail"]):
             raise RuntimeError(f"the trainer's kernel launches are not one diffusion per step and no "
                                f"bf16 forward kernel: {train_launches}")
         reloaded = m.weights.load_weights(train_npz)
@@ -2649,10 +2724,14 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     # -- 16. Cellpose-SAM: kernel 8 and the cpsam route ------------------------------
     kernels.append(cellpose_sam_phase(m, dev, rehearsal, wells, timed, say, smi))
 
+    # -- 17. the U-Net block tail (kernel 9) -------------------------------------------
+    kernels.append(unet_tail_phase(m, dev, n_wells, seg_size, seg_launches["unet_tail"], timed,
+                                   say, smi))
+
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 17. result -----------------------------------------------------------------
+    # -- 18. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,6 +18,7 @@ from arcadia_microscopy_tools_tpu_torch.models import (
     flows_cuda,
     gn_cuda,
     stretch_cuda,
+    tail_cuda,
 )
 from arcadia_microscopy_tools_tpu_torch.models.weights import DEFAULT_WEIGHTS
 from arcadia_microscopy_tools_tpu_torch.ops import cc_cuda, filters, labeling, rank_cuda
@@ -431,3 +432,84 @@ def test_training_step_on_the_card_matches_the_cpu(cuda_device):
     assert launched == (1, 0, 0)
     assert torch.equal(fg_d, fg_c) and float((flow_d - flow_c).abs().max()) <= 0.02
     np.testing.assert_allclose(card, cpu, rtol=1e-2)
+
+
+def _tail_operands(b, h, w, c, form, device, seed):
+    """Kernel 9's operands: signed zeros where the affine, the residual add
+    and the ReLU meet them (at pixels (0, 0, 0-1) of image 0, channels 0-7,
+    y -0 times a positive scale plus a bias of -0, plus a residual of -0,
+    is relu(-0)), NaNs in y, skip and up."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = _bf16(g, b, h, w, c, scale=3.0, device=device)
+    scale = torch.randn((b, c), generator=g, device=device) + 1
+    bias = torch.randn((b, c), generator=g, device=device) * 0.5
+    skip = _bf16(g, b, h, w, c, device=device)
+    up = _bf16(g, b, (h + 1) // 2, (w + 1) // 2, c, device=device) if "split" in form else None
+    style = _bf16(g, b, c, scale=0.3, device=device) if "style" in form else None
+    scale[0, :8] = scale[0, :8].abs() + 0.5
+    bias[0, :8] = -0.0
+    y[0, 0, :6, :8] = -0.0
+    skip[0, 0, :3, :8] = -0.0
+    if up is not None:
+        up[0, 0, :1, :8] = -0.0  # pixels (0, 0-1) of the split residual sum to -0
+    y[-1, -1, -1, -1] = float("nan")
+    skip[-1, 3, 5] = float("nan")
+    if up is not None:
+        up[-1, -1, 0] = float("nan")
+    return y, scale, bias, skip, up, style
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("form", ["skip", "skip and style", "split skip", "split skip and style"])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_unet_tail_matches_plain_bit_for_bit(cuda_device, c, b, form, in_place):
+    """Kernel 9 against its plain version on the card, as int16 views (NaNs
+    and the sign of zero included), 37 x 53 pixels so that the pixels do
+    not divide the blocks."""
+    y, scale, bias, skip, up, style = _tail_operands(b, 37, 53, c, form, cuda_device, c + b)
+    want = tail_cuda.unet_tail_plain(y, scale, bias, skip, up=up, style=style)
+    tail_cuda.reset_launch_counts()
+    got = tail_cuda.unet_tail(y, scale, bias, skip, up=up, style=style,
+                              out=y if in_place else None)
+    torch.cuda.synchronize()
+    assert tail_cuda.launch_counts == {"unet_tail": 1}
+    assert (got.data_ptr() == y.data_ptr()) == in_place
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_unet_tail_rejects_what_the_kernel_does_not_take(cuda_device):
+    y, scale, bias, skip, up, _ = _tail_operands(1, 8, 8, 32, "split skip", cuda_device, 0)
+    with pytest.raises(ValueError):
+        tail_cuda.unet_tail(y.float(), scale, bias, skip.float())
+    with pytest.raises(ValueError):
+        tail_cuda.unet_tail(y, scale, bias, skip, up=up[:, :3].contiguous())
+    with pytest.raises(ValueError):
+        tail_cuda.unet_tail(y, scale, bias, skip.transpose(1, 2))
+    with pytest.raises(ValueError):
+        tail_cuda.unet_tail(y[..., :12], scale[:, :12], bias[:, :12], skip[..., :12])
+
+
+@pytest.mark.gpu
+def test_unet_forward_launches_the_tail_seven_times_bit_for_bit_the_plain_tail(cuda_device,
+                                                                              monkeypatch):
+    """The bf16 forward launches kernel 9 once per block, 7 times, and gives
+    the bits of the same forward with the plain tail (the PyTorch sequence
+    the kernel replaced)."""
+    from arcadia_microscopy_tools_tpu_torch.models import unet
+    from arcadia_microscopy_tools_tpu_torch.models.weights import load_weights
+
+    net = unet.UNet(unet.UNetConfig(), generator=torch.Generator())
+    net.load_state_dict(load_weights())
+    net = net.to(cuda_device).eval()
+    x = torch.from_numpy(np.random.default_rng(8).random((2, 128, 192, 3), dtype=np.float32))
+    x = x.to(cuda_device)
+    tail_cuda.reset_launch_counts()
+    got = net(x)
+    assert tail_cuda.launch_counts["unet_tail"] == 7
+    monkeypatch.setattr(unet, "unet_tail", tail_cuda.unet_tail_plain)
+    want = net(x)
+    assert tail_cuda.launch_counts["unet_tail"] == 7
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

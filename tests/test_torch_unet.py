@@ -20,8 +20,8 @@ from arcadia_microscopy_tools_tpu.models import conv_pallas, gn_pallas
 from arcadia_microscopy_tools_tpu.models.unet import UNetConfig as JaxUNetConfig
 from arcadia_microscopy_tools_tpu.models.unet import _group_norm, apply_unet, init_unet
 from arcadia_microscopy_tools_tpu.models.unet_s2d import apply_unet_s2d, s2d_params
-from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, gn_cuda
-from arcadia_microscopy_tools_tpu_torch.models.unet import UNet, UNetConfig
+from arcadia_microscopy_tools_tpu_torch.models import conv_cuda, gn_cuda, tail_cuda
+from arcadia_microscopy_tools_tpu_torch.models.unet import UNet, UNetConfig, _upsample2
 from arcadia_microscopy_tools_tpu_torch.models.weights import flatten_tree, state_dict_from_tree
 
 # the suite runs in several worker processes at once; one torch thread per
@@ -159,6 +159,70 @@ class TestGroupNormMatchesJax:
             _group_norm(xj, jnp.asarray(scale), jnp.asarray(bias), 8),
         ):
             _assert_within_one_bf16_ulp(got, np.asarray(want, np.float32))
+
+
+class TestBlockTail:
+    """The plain block tail against the PyTorch expressions the forward ran
+    before it: `_upsample2(up) + skip` for the decoder's split residual,
+    then GN2's affine in float32, the residual add and the ReLU in the
+    compute dtype, then `+= style`."""
+
+    @staticmethod
+    def _operands(dtype, split: bool, style: bool):
+        g = torch.Generator().manual_seed(11)
+        b, h, w, c = 2, 12, 20, 32
+        y = (torch.randn((b, h, w, c), generator=g) * 3).to(dtype)
+        y[0, 0, :4] = -0.0  # signed zeros through the affine and the ReLU
+        scale = torch.randn((b, c), generator=g) + 1
+        bias = torch.randn((b, c), generator=g) * 0.5
+        bias[0, :8] = -0.0
+        skip = torch.randn((b, h, w, c), generator=g).to(dtype)
+        skip[0, 0, :4] = -0.0
+        up = torch.randn((b, h // 2, w // 2, c), generator=g).to(dtype) if split else None
+        row = (torch.randn((b, c), generator=g) * 0.3).to(dtype) if style else None
+        return y, scale, bias, skip, up, row
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("form", ["skip", "split skip", "split skip and style"])
+    @pytest.mark.parametrize("in_place", [False, True])
+    def test_plain_matches_the_replaced_expressions(self, dtype, form, in_place):
+        y, scale, bias, skip, up, row = self._operands(dtype, "split" in form, "style" in form)
+        r = skip if up is None else _upsample2(up) + skip
+        f = y.float().clone()  # float32 y: y.float() is y itself
+        f.mul_(scale[:, None, None, :]).add_(bias[:, None, None, :])
+        want = f.to(dtype)
+        want += r.to(dtype)
+        want.relu_()
+        if row is not None:
+            want += row[:, None, None, :]
+        y_in = y.clone()
+        out = y if in_place else None
+        got = tail_cuda.unet_tail(y, scale, bias, skip, up=up, style=row, out=out)
+        assert got.dtype == dtype and (got is y) == in_place
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+        if not in_place:
+            assert torch.equal(y, y_in)
+        assert tail_cuda.launch_counts["unet_tail"] == 0
+
+    def test_plain_reads_up_at_half_resolution_on_odd_shapes(self):
+        """Odd H and W: `up` holds ceil(H / 2) x ceil(W / 2) pixels, each
+        read by the 2 x 2 block at (y // 2, x // 2) that lies in the image."""
+        g = torch.Generator().manual_seed(12)
+        y = torch.randn((1, 5, 7, 8), generator=g).to(torch.bfloat16)
+        one, zero = torch.ones((1, 8)), torch.zeros((1, 8))
+        skip = torch.zeros_like(y)
+        up = torch.arange(12, dtype=torch.float32).reshape(1, 3, 4, 1).expand(1, 3, 4, 8)
+        got = tail_cuda.unet_tail_plain(torch.zeros_like(y), one, zero, skip,
+                                        up=up.to(torch.bfloat16).contiguous())
+        yy, xx = torch.meshgrid(torch.arange(5), torch.arange(7), indexing="ij")
+        assert torch.equal(got[0, ..., 0].float(), ((yy // 2) * 4 + xx // 2).float())
+
+    def test_the_wrapper_refuses_a_device_without_a_kernel(self):
+        y = torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device="meta")
+        rows = torch.zeros((1, 8), device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            tail_cuda.unet_tail(y, rows, rows, y)
 
 
 class TestForwardMatchesJax:
