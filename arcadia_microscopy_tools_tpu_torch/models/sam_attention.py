@@ -1,9 +1,12 @@
-"""Global attention with SAM's decomposed relative-position bias: kernel 8
-(CUDA) and its plain version.
+"""Attention with SAM's decomposed relative-position bias: kernel 8 (CUDA)
+and its plain version.
 
 `sam_attention(qkv, rel_h, rel_w, heads, grid)` is the attention of one
-block of the Cellpose-SAM encoder (models/vit_sam.py) over the grid x grid
-tokens of each tile, every head at once. For query i = (iy, ix) and key
+block of a SAM ViT encoder (models/vit_sam.py) over the grid x grid tokens
+of each tile, every head at once: Cellpose-SAM's global blocks on its
+tiles (grids 8, 16, 32), SAM's global blocks over its 64 x 64 grid, and
+SAM's windowed blocks, where each "tile" is one 14 x 14 window of the
+zero-padded token map (grid 14; the caller gathers the windows). For query i = (iy, ix) and key
 j = (jy, jx) of a grid x grid token map the logits are
 
     S[i, j] = (q_i / sqrt(d)) . k_j + q_i . Rh[iy - jy + grid - 1]
@@ -29,7 +32,11 @@ registers (a key's column repeats in every step of 64 keys) and Q Rh^T in
 shared memory, then walks the keys 64 at a time (whole rows of the grid)
 through a two-stage cp.async ring, the bias added to the float32 scores, an
 online softmax in float32 and P V with P in bfloat16. Neither the bias nor S
-ever leaves the chip. The source's head comment has the details.
+ever leaves the chip. Grid 64 stages its 127-row tables in 128. Grid 14
+runs a second kernel of the same loop, `sam_window_kernel`: 196 tokens fill
+neither its 64-query blocks nor its 64-key steps, so keys past them score
+-inf, queries past them are not stored, and each score looks both bias
+terms up in shared memory. The source's head comment has the details.
 
 Bound: operations. Per tile and block at the published sizes (16 heads,
 1024 tokens, d = 64) Q K^T and P V are 4.295 GFLOP and the two table
@@ -58,8 +65,9 @@ __all__ = [
     "split_qkv",
 ]
 
-# kernel launches (one per call: every tile and head of a block)
-launch_counts = {"sam_attention": 0}
+# kernel launches (one per call: every tile or window and head of a block):
+# the global kernel's instances, and the window kernel's
+launch_counts = {"sam_attention": 0, "sam_window_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,7 +75,8 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-_GRIDS = (8, 16, 32)  # the kernel's instances
+_GRIDS = (8, 16, 32, 64)  # the global kernel's instances
+_WINDOWS = (14,)  # the window kernel's
 _HEAD = 64
 _LOG2E = 1.4426950408889634
 
@@ -151,9 +160,9 @@ def sam_attention(qkv: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor, h
         raise ValueError("the CUDA kernel takes contiguous qkv and tables")
     if any(x.data_ptr() % 16 for x in (qkv, rel_h, rel_w)):
         raise ValueError("the CUDA kernel takes qkv and tables at 16-byte aligned addresses")
-    if grid not in _GRIDS or d != _HEAD:
-        raise ValueError(f"the CUDA kernel takes a grid of {_GRIDS} and heads of {_HEAD}, got "
-                         f"grid {grid}, head {d}")
+    if grid not in _GRIDS + _WINDOWS or d != _HEAD:
+        raise ValueError(f"the CUDA kernel takes a grid of {_GRIDS + _WINDOWS} and heads of "
+                         f"{_HEAD}, got grid {grid}, head {d}")
     if t * heads > 65535:
         raise ValueError(f"{t * heads} tile-heads exceed the kernel grid")
     out = torch.empty((t, length, w3 // 3), dtype=qkv.dtype, device=dev)
@@ -162,6 +171,7 @@ def sam_attention(qkv: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor, h
             qkv.data_ptr(), out.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), t, heads, grid,
             qkv.stride(0), qkv.stride(1), out.stride(0), out.stride(1),
             d**-0.5 * _LOG2E, cuda_stream(qkv))
-    check_launch(err, "sam_attention")
-    launch_counts["sam_attention"] += 1
+    kernel = "sam_window_attention" if grid in _WINDOWS else "sam_attention"
+    check_launch(err, kernel)
+    launch_counts[kernel] += 1
     return out

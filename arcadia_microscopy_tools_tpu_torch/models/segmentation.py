@@ -16,7 +16,14 @@ does: 256 x 256 tiles (models/sam_tiles.py) through the encoder in
 micro-batches of `SAM_MICRO_BATCH` tiles, blended back with Cellpose's
 taper. Its input is the same 1-99 percentile stretch of the first three
 planes, clipped to [0, 1] (Cellpose's `normalize99` does not clip), and is
-not padded to a multiple of 16. An image whose expected
+not padded to a multiple of 16. `network="sam"` runs Segment Anything's
+automatic mask generator instead of flows and masks
+(models/sam_decoder.py, models/sam_amg.py, loaded only for that network):
+the same stretch, SAM's uint8 input resized to its 1024 input, the ViT-L
+encoder in micro-batches of `SAM_AMG_MICRO_BATCH` images, then per image
+1024 point prompts through the mask decoder in batches of 64, the AMG's
+filters, NMS and painting, all on the device; it takes no diameter (no
+zoom) and returns int32 labels. An image whose expected
 diameter needs no zoom (scale 1) is copied to the device as given and its
 chunk stretched there (models/stretch_cuda.py, the same values as the numpy
 `_prepare_image`); an image that needs a zoom is prepared on the host by
@@ -33,7 +40,7 @@ import warnings
 from collections.abc import Sequence
 from dataclasses import InitVar, dataclass, field
 from pathlib import Path
-from typing import Any, TypedDict
+from typing import TYPE_CHECKING, Any, TypedDict
 
 import numpy as np
 import torch
@@ -50,8 +57,13 @@ from .unet import UNet, UNetConfig
 from .vit_sam import CellposeSAM, SamConfig, seeded_state_dict
 from .weights import DEFAULT_WEIGHTS, load_state_dict, load_weights
 
+if TYPE_CHECKING:  # loaded only when network="sam" is built
+    from .sam_amg import AmgSettings
+    from .sam_decoder import SamModelConfig, SegmentAnything
+
 __all__ = [
     "NETWORKS",
+    "SAM_AMG_MICRO_BATCH",
     "SAM_MICRO_BATCH",
     "SegmentationModel",
     "SegmentationParams",
@@ -61,10 +73,13 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 _DOWNSAMPLE_MULTIPLE = 16  # pad H, W to this multiple for the U-Net
-NETWORKS = ("unet", "cpsam")
+NETWORKS = ("unet", "cpsam", "sam")
 # Cellpose-SAM tiles per encoder call: at the published widths a call of 64
 # tiles holds ~2.5 GB of activations besides the chunk's tiles and maps
 SAM_MICRO_BATCH = 64
+# SAM images per encoder call (1024^2 each, 4096 tokens): a call of 8 holds
+# ~1.5 GB of activations
+SAM_AMG_MICRO_BATCH = 8
 # dtypes copied to the device as given; any other is cast to float32 on the host
 _DEVICE_DTYPES = (np.dtype(np.float64), np.dtype(np.float32), np.dtype(np.uint16))
 
@@ -115,8 +130,9 @@ class SegmentationModel:
     """Segmentation wrapper for high-throughput cell segmentation.
 
     Attributes:
-        network: "unet" (the Cellpose-style U-Net, the default) or "cpsam"
-            (Cellpose-SAM); an init argument, read back as `architecture`.
+        network: "unet" (the Cellpose-style U-Net, the default), "cpsam"
+            (Cellpose-SAM) or "sam" (Segment Anything ViT-L's automatic
+            mask generator); an init argument, read back as `architecture`.
             After construction `network` is the built network.
         default_cell_diameter_px: default expected cell diameter in pixels (30).
         default_flow_threshold: default flow-error threshold; higher keeps
@@ -130,7 +146,10 @@ class SegmentationModel:
         checkpoint_path: U-Net: `.npz` of the JAX parameter tree
             (models/weights.py); Cellpose-SAM: a torch state dict in the
             published layout (such as Cellpose's `cpsam`), read with
-            `torch.load(weights_only=True)`; otherwise seeded weights
+            `torch.load(weights_only=True)`; SAM: likewise, SAM's
+            published layout (`image_encoder.*`, `prompt_encoder.*`,
+            `mask_decoder.*`, as in `sam_vit_l_0b3195.pth` or micro-SAM's
+            `vit_l_lm`); otherwise seeded weights
             (identical pipeline, untrained network). A directory (the JAX
             package's orbax checkpoint) is a ValueError.
         seed: seed of the torch generator for seeded weights.
@@ -149,6 +168,15 @@ class SegmentationModel:
             "tiles a-b", waiting for its maps, so its total is the
             encoder's time; `counts["segment.encoder.tiles"]` adds up its
             tiles) and "segment.blend" in place of "segment.forward".
+            SAM runs "segment.resize" (a chunk's uint8 rounding, resize,
+            normalisation and pad), "segment.encoder" (one micro-batch,
+            args "images a-b", waiting for its embeddings; counter
+            "segment.encoder.images"), per prompt batch "segment.decoder"
+            and "segment.amg_filter" (args "image i points a-b", each
+            waiting for the device), per image "segment.nms",
+            "segment.paint" and "segment.readback", with the counters
+            "segment.amg.candidates", ".iou_kept", ".stable_kept" and
+            ".nms_kept" (models/sam_amg.py).
     """
 
     default_cell_diameter_px: float = 30
@@ -163,9 +191,14 @@ class SegmentationModel:
     min_size: int = 15
     network: InitVar[str] = _Network()
     architecture: str = field(default="unet", init=False)
-    _network: UNet | CellposeSAM | None = field(default=None, init=False, repr=False)
+    _network: UNet | CellposeSAM | SegmentAnything | None = field(default=None, init=False,
+                                                                   repr=False)
     _config: UNetConfig = field(default_factory=UNetConfig, init=False, repr=False)
     _sam_config: SamConfig = field(default_factory=SamConfig, init=False, repr=False)
+    # SAM's sizes and AMG settings (models/sam_decoder.py SamModelConfig,
+    # models/sam_amg.py AmgSettings); None is the published defaults
+    _sam_model_config: SamModelConfig | None = field(default=None, init=False, repr=False)
+    _amg: AmgSettings | None = field(default=None, init=False, repr=False)
     stages: StageTimer = field(default_factory=StageTimer, init=False, repr=False)
 
     def __post_init__(self, network: str) -> None:
@@ -218,9 +251,20 @@ class SegmentationModel:
             )
         return params
 
-    def _built_network(self) -> UNet | CellposeSAM:
+    def _built_network(self) -> UNet | CellposeSAM | SegmentAnything:
         """The network on the model's device, built once (checkpoint or
         seeded): `network` after construction."""
+        if self._network is None and self.architecture == "sam":
+            from .sam_decoder import SamModelConfig, SegmentAnything
+            from .sam_decoder import seeded_state_dict as sam_seeded_state_dict
+
+            config = self._sam_model_config or SamModelConfig()
+            if self.checkpoint_path is not None:
+                logger.info(f"Loading SAM weights from {self.checkpoint_path}")
+                state = load_state_dict(self.checkpoint_path)
+            else:
+                state = sam_seeded_state_dict(config, torch.Generator().manual_seed(self.seed))
+            self._network = SegmentAnything(state, config, device=self.device)
         if self._network is None and self.architecture == "cpsam":
             if self.checkpoint_path is not None:
                 logger.info(f"Loading Cellpose-SAM weights from {self.checkpoint_path}")
@@ -294,6 +338,8 @@ class SegmentationModel:
         return labels[yi[:, None], xi[None, :]]
 
     def _rescale_factor(self, params: SegmentationParams) -> float:
+        if self.architecture == "sam":  # SAM resizes to its own input side
+            return 1.0
         return self._CANONICAL_DIAMETER / float(params["diameter"])
 
     def _resolve_niter(self, params: SegmentationParams) -> int:
@@ -319,7 +365,7 @@ class SegmentationModel:
     @property
     def _multiple(self) -> int:
         """What the network's input is padded to a multiple of."""
-        return 1 if self.architecture == "cpsam" else _DOWNSAMPLE_MULTIPLE
+        return _DOWNSAMPLE_MULTIPLE if self.architecture == "unet" else 1
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """One image's first three planes on the device, in the caller's
@@ -368,8 +414,7 @@ class SegmentationModel:
             b = min(a + SAM_MICRO_BATCH, tiles.shape[0])
             with self.stages.stage("segment.encoder", block=maps, args=f"tiles {a}-{b - 1}"):
                 maps[a:b] = net(tiles[a:b])
-            counts = self.stages.counts  # a counter with no time: the tiles encoded
-            counts["segment.encoder.tiles"] = counts.get("segment.encoder.tiles", 0) + b - a
+            self.stages.count("segment.encoder.tiles", b - a)
         del tiles
         with self.stages.stage("segment.blend"):
             y = average_tiles(maps, n, *img.shape[-2:])
@@ -409,14 +454,51 @@ class SegmentationModel:
         t = F.interpolate(t, size=tuple(shape), mode="bilinear", align_corners=False)
         return t[0].permute(1, 2, 0).contiguous().numpy()
 
+    def _amg_chunk(self, chunk: list[_Staged], with_candidates: bool = False
+                   ) -> list[np.ndarray] | tuple[list[np.ndarray], list[dict]]:
+        """SAM's automatic mask generation on one chunk of images of one
+        shape: their int32 label images and, with `with_candidates`, each
+        image's candidates on the host (models/sam_amg.py `generate`; the
+        logits stay a torch tensor in the decoder's dtype, the rest numpy)."""
+        from .sam_amg import AmgSettings, generate, sam_input
+
+        net = self.network
+        c = net.config.image
+        x = self._prepared(chunk, 1.0)
+        labels, candidates = [], []
+        with torch.inference_mode():
+            with self.stages.stage("segment.resize"):
+                images = sam_input(x, c.tile)
+            del x
+            emb = torch.empty((len(chunk), c.grid * c.grid, c.neck), dtype=net.dtype,
+                              device=images.device)
+            for a in range(0, len(chunk), SAM_AMG_MICRO_BATCH):
+                b = min(a + SAM_AMG_MICRO_BATCH, len(chunk))
+                with self.stages.stage("segment.encoder", block=emb, args=f"images {a}-{b - 1}"):
+                    emb[a:b] = net.encode(images[a:b])
+                self.stages.count("segment.encoder.images", b - a)
+            del images
+            for k, item in enumerate(chunk):
+                lab, cand = generate(net, emb[k], item.hw, self._amg or AmgSettings(),
+                                     self.stages, item.index)
+                with self.stages.stage("segment.readback"):
+                    labels.append(lab.cpu().numpy())
+                    if with_candidates:
+                        candidates.append({key: v.cpu() if key == "logits" else v.cpu().numpy()
+                                           for key, v in cand.items()})
+        return (labels, candidates) if with_candidates else labels
+
     def _segment_chunk(
         self, chunk: list[_Staged], scale: float, params: SegmentationParams,
-        with_flows: bool = False,
-    ) -> list[Int64Array] | tuple[list[Int64Array], list[np.ndarray]]:
+        with_flows: bool = False, with_candidates: bool = False,
+    ) -> list[Int64Array] | tuple[list[Int64Array], list]:
         """Prepare, segment and finish one chunk: its int64 label images at
         the original sizes and, with `with_flows`, the network's float32
         (h, w, 3) maps at those sizes. Only this chunk's input is on the
-        device."""
+        device. SAM gives int32 labels, and with `with_candidates` its
+        candidates (`_amg_chunk`)."""
+        if self.architecture == "sam":
+            return self._amg_chunk(chunk, with_candidates)
         x = self._prepared(chunk, scale)
         if with_flows:
             labels, maps = self._labels_of(x, params, with_flows=True)
@@ -472,8 +554,9 @@ class SegmentationModel:
         batch_size: int | None = None,
         show_progress: bool = True,
         return_flows: bool = False,
+        return_candidates: bool = False,
         **extra_kwargs: Any,
-    ) -> list[Int64Array | None] | tuple[list[Int64Array | None], list[np.ndarray | None]]:
+    ) -> list[Int64Array | None] | tuple[list[Int64Array | None], list]:
         """Segment many images with one set of parameters.
 
         Images are grouped by padded shape and run in chunks of
@@ -483,7 +566,18 @@ class SegmentationModel:
         `return_flows` the result is (masks, flows): each image's network
         maps as a float32 (H, W, 3) array (dY, dX, cell probability) at its
         original size, as Cellpose's `eval` returns its flows, or None.
+        With `network="sam"` the labels are int32, no flows are made, and
+        `return_candidates` returns (masks, candidates): each image's AMG
+        candidates (models/sam_amg.py `generate`: the IoU predictions and
+        stability scores of every candidate, the indices and low-resolution
+        logits of those that passed both filters, the records of the masks
+        NMS kept), or None.
         """
+        if return_flows and self.architecture == "sam":
+            raise ValueError("network='sam' makes no flows; ask for return_candidates")
+        if return_candidates and self.architecture != "sam":
+            raise ValueError("return_candidates needs network='sam'")
+        with_extra = return_flows or return_candidates
         resolved = self._resolve_and_validate_parameters(
             cell_diameter_px, flow_threshold, cellprob_threshold, num_iterations, batch_size
         )
@@ -510,12 +604,14 @@ class SegmentationModel:
             for start in range(0, len(group), bs):
                 chunk = group[start : start + bs]
                 try:
-                    self._place(chunk, scale, resolved, return_flows, masks, flows)
+                    self._place(chunk, scale, resolved, return_flows, return_candidates, masks,
+                                flows)
                 except Exception as e:  # noqa: BLE001
                     logger.debug(f"Batched dispatch failed ({e}); isolating per image")
                     for item in chunk:
                         try:
-                            self._place([item], scale, resolved, return_flows, masks, flows)
+                            self._place([item], scale, resolved, return_flows,
+                                        return_candidates, masks, flows)
                         except Exception as e1:  # noqa: BLE001
                             fail(item.index, e1)
                 if progress is not None:
@@ -523,13 +619,15 @@ class SegmentationModel:
 
         if progress is not None:
             progress.close()
-        return (masks, flows) if return_flows else masks
+        return (masks, flows) if with_extra else masks
 
     def _place(self, chunk: list[_Staged], scale: float, params: SegmentationParams,
-               with_flows: bool, masks: list, flows: list) -> None:
-        """Segment one chunk and put its masks (and flows) at their indices."""
-        got = self._segment_chunk(chunk, scale, params, with_flows)
-        chunk_masks, chunk_flows = got if with_flows else (got, [None] * len(chunk))
+               with_flows: bool, with_candidates: bool, masks: list, flows: list) -> None:
+        """Segment one chunk and put its masks (and flows or candidates) at
+        their indices."""
+        got = self._segment_chunk(chunk, scale, params, with_flows, with_candidates)
+        with_extra = with_flows or with_candidates
+        chunk_masks, chunk_flows = got if with_extra else (got, [None] * len(chunk))
         for item, mask, flow in zip(chunk, chunk_masks, chunk_flows):
             masks[item.index], flows[item.index] = mask, flow
 

@@ -1,4 +1,5 @@
-"""Cellpose-SAM: SAM's ViT-L image encoder with Cellpose's readout.
+"""SAM's ViT image encoder, and Cellpose-SAM: that encoder with Cellpose's
+readout.
 
 The network of Pachitariu, Rariden & Stringer, *Cellpose-SAM* (bioRxiv 2025;
 github.com/MouseLand/cellpose, `cellpose/vit_sam.py`, `Transformer`), built
@@ -52,6 +53,18 @@ Departures from the sources:
   from its caller).
 The input stretch and tiling are the segmentation entry's
 (models/segmentation.py, models/sam_tiles.py), with their own departures.
+
+`ViTEncoder` is the encoder alone, shared by both models: Cellpose-SAM's
+(keys `encoder.*`, every block global) and Segment Anything's own
+(models/sam_decoder.py, keys `image_encoder.*`, `SamConfig.window` 14: the
+blocks outside `global_blocks` attend inside 14 x 14 windows). A windowed
+block runs SAM's `window_partition`: LN1(x) is zero-padded at the bottom
+and right to a multiple of the window (64 -> 70 at 1024^2), cut into
+windows, and qkv, attention (kernel 8's window form, tables of 2 window - 1
+rows used as stored) and proj run per window token; the windows are put
+back and the padding cropped. The pad tokens are not masked: their q, k
+and v are the qkv bias, and every edge window attends to them, as in SAM.
+proj runs after the crop, which is the same per-token map.
 """
 
 from __future__ import annotations
@@ -66,6 +79,8 @@ from .sam_attention import sam_attention
 __all__ = [
     "CellposeSAM",
     "SamConfig",
+    "ViTEncoder",
+    "encoder_shapes",
     "published_shapes",
     "resize_rel_pos",
     "seeded_state_dict",
@@ -80,7 +95,10 @@ class SamConfig:
 
     `global_blocks` are the blocks whose stored relative-position tables
     have 2 * sam_grid - 1 rows (SAM's global blocks over its 64 x 64 grid);
-    the others have 2 * sam_window - 1 (its 14 x 14 windows)."""
+    the others have 2 * sam_window - 1 (its 14 x 14 windows). `window` 0
+    (Cellpose-SAM) runs every block with global attention over the tile's
+    grid, the tables resized to 2 * grid - 1 rows; `window` > 0 (SAM) runs
+    the blocks outside `global_blocks` in window x window windows."""
 
     width: int = 1024
     depth: int = 24
@@ -93,6 +111,7 @@ class SamConfig:
     global_blocks: tuple[int, ...] = (5, 11, 17, 23)
     sam_grid: int = 64
     sam_window: int = 14
+    window: int = 0
 
     @property
     def grid(self) -> int:
@@ -105,17 +124,23 @@ class SamConfig:
     def stored_rel_rows(self, block: int) -> int:
         return 2 * (self.sam_grid if block in self.global_blocks else self.sam_window) - 1
 
+    def attention_grid(self, block: int) -> int:
+        """The side of the token map block `block` attends over: its window,
+        or the whole grid."""
+        return self.window if self.window and block not in self.global_blocks else self.grid
 
-def published_shapes(config: SamConfig = SamConfig()) -> dict[str, tuple[int, ...]]:
-    """Every tensor of the published state dict with its shape."""
+
+def encoder_shapes(config: SamConfig, prefix: str) -> dict[str, tuple[int, ...]]:
+    """The encoder's tensors (patch embedding, blocks, neck) under `prefix`
+    with their shapes."""
     c, w = config, config.width
     shapes = {
-        "encoder.pos_embed": (1, c.grid, c.grid, w),
-        "encoder.patch_embed.proj.weight": (w, 3, c.patch, c.patch),
-        "encoder.patch_embed.proj.bias": (w,),
+        prefix + "pos_embed": (1, c.grid, c.grid, w),
+        prefix + "patch_embed.proj.weight": (w, 3, c.patch, c.patch),
+        prefix + "patch_embed.proj.bias": (w,),
     }
     for i in range(c.depth):
-        p = f"encoder.blocks.{i}."
+        p = f"{prefix}blocks.{i}."
         rows = c.stored_rel_rows(i)
         shapes.update({
             p + "norm1.weight": (w,), p + "norm1.bias": (w,),
@@ -126,12 +151,21 @@ def published_shapes(config: SamConfig = SamConfig()) -> dict[str, tuple[int, ..
             p + "mlp.lin1.weight": (c.mlp, w), p + "mlp.lin1.bias": (c.mlp,),
             p + "mlp.lin2.weight": (w, c.mlp), p + "mlp.lin2.bias": (w,),
         })
+    shapes.update({
+        prefix + "neck.0.weight": (c.neck, w, 1, 1),
+        prefix + "neck.1.weight": (c.neck,), prefix + "neck.1.bias": (c.neck,),
+        prefix + "neck.2.weight": (c.neck, c.neck, 3, 3),
+        prefix + "neck.3.weight": (c.neck,), prefix + "neck.3.bias": (c.neck,),
+    })
+    return shapes
+
+
+def published_shapes(config: SamConfig = SamConfig()) -> dict[str, tuple[int, ...]]:
+    """Every tensor of Cellpose-SAM's published state dict with its shape."""
+    c = config
+    shapes = encoder_shapes(c, "encoder.")
     out = c.maps * c.patch**2
     shapes.update({
-        "encoder.neck.0.weight": (c.neck, w, 1, 1),
-        "encoder.neck.1.weight": (c.neck,), "encoder.neck.1.bias": (c.neck,),
-        "encoder.neck.2.weight": (c.neck, c.neck, 3, 3),
-        "encoder.neck.3.weight": (c.neck,), "encoder.neck.3.bias": (c.neck,),
         "out.weight": (out, c.neck, 1, 1), "out.bias": (out,),
         "W2": (out, c.maps, c.patch, c.patch),
         "diam_labels": (1,), "diam_mean": (1,),
@@ -160,8 +194,7 @@ def seeded_state_dict(config: SamConfig = SamConfig(), generator: torch.Generato
             t = _identity_w2(config)
         elif name.startswith("diam"):
             t = torch.full(shape, 30.0)
-        elif ".norm" in name or name.startswith("encoder.neck.1") or name.startswith(
-                "encoder.neck.3"):
+        elif ".norm" in name or ".neck.1." in name or ".neck.3." in name:
             t = torch.ones(shape) if leaf == "weight" else torch.zeros(shape)
         elif leaf == "weight":
             fan_in = int(torch.tensor(shape[1:]).prod())
@@ -196,61 +229,76 @@ def _check_state(state: dict[str, torch.Tensor], config: SamConfig) -> None:
         raise ValueError("W2 is not the identity pixel shuffle that Cellpose-SAM fixes")
 
 
-class CellposeSAM:
-    """The network on one device; `__call__` maps (T, 3, tile, tile) float
-    tiles to (T, maps, tile, tile) float32 maps."""
+class ViTEncoder:
+    """SAM's image encoder on one device: `tokens` maps (T, 3, tile, tile)
+    images to (T, grid^2, width) tokens after the blocks, `neck` those to
+    (T, grid^2, neck) embeddings. `state` holds its tensors under `prefix`
+    (checked by the caller)."""
 
-    def __init__(self, state: dict[str, torch.Tensor], config: SamConfig = SamConfig(),
-                 device: str | torch.device = "cpu", dtype: torch.dtype = torch.bfloat16):
-        _check_state(state, config)
-        self.config, self.dtype = config, dtype
-        self.device = torch.device(device)
+    def __init__(self, state: dict[str, torch.Tensor], config: SamConfig, prefix: str,
+                 device: torch.device, dtype: torch.dtype):
+        self.config, self.dtype, self.device = config, dtype, device
         c = config
 
         def cast(t: torch.Tensor, to: torch.dtype = dtype) -> torch.Tensor:
-            return t.to(self.device, to).contiguous()
+            return t.to(device, to).contiguous()
 
         def w(name: str) -> torch.Tensor:
-            return cast(state[name])
+            return cast(state[prefix + name])
 
-        self.patch_w = cast(state["encoder.patch_embed.proj.weight"].reshape(c.width, -1))
-        self.patch_b = w("encoder.patch_embed.proj.bias")
-        self.pos = cast(state["encoder.pos_embed"].reshape(1, c.grid * c.grid, c.width))
-        rows = 2 * c.grid - 1
+        self.patch_w = cast(state[prefix + "patch_embed.proj.weight"].reshape(c.width, -1))
+        self.patch_b = w("patch_embed.proj.bias")
+        self.pos = cast(state[prefix + "pos_embed"].reshape(1, c.grid * c.grid, c.width))
         self.blocks = []
         for i in range(c.depth):
-            p = f"encoder.blocks.{i}."
+            p = f"blocks.{i}."
+            rows = 2 * c.attention_grid(i) - 1
             self.blocks.append({
+                "grid": c.attention_grid(i),
                 "norm1": (w(p + "norm1.weight"), w(p + "norm1.bias")),
                 "qkv": (w(p + "attn.qkv.weight"), w(p + "attn.qkv.bias")),
-                "rel_h": cast(resize_rel_pos(state[p + "attn.rel_pos_h"], rows)),
-                "rel_w": cast(resize_rel_pos(state[p + "attn.rel_pos_w"], rows)),
+                "rel_h": cast(resize_rel_pos(state[prefix + p + "attn.rel_pos_h"], rows)),
+                "rel_w": cast(resize_rel_pos(state[prefix + p + "attn.rel_pos_w"], rows)),
                 "proj": (w(p + "attn.proj.weight"), w(p + "attn.proj.bias")),
                 "norm2": (w(p + "norm2.weight"), w(p + "norm2.bias")),
                 "lin1": (w(p + "mlp.lin1.weight"), w(p + "mlp.lin1.bias")),
                 "lin2": (w(p + "mlp.lin2.weight"), w(p + "mlp.lin2.bias")),
             })
-        self.neck0 = cast(state["encoder.neck.0.weight"].reshape(c.neck, c.width))
-        self.neck1 = (w("encoder.neck.1.weight"), w("encoder.neck.1.bias"))
+        self.neck0 = cast(state[prefix + "neck.0.weight"].reshape(c.neck, c.width))
+        self.neck1 = (w("neck.1.weight"), w("neck.1.bias"))
         # (Co, C, 3, 3) -> (Co, C * 9) in F.unfold's (c, ky, kx) order
-        self.neck2 = cast(state["encoder.neck.2.weight"].reshape(c.neck, -1))
-        self.neck3 = (w("encoder.neck.3.weight"), w("encoder.neck.3.bias"))
-        self.out_w = cast(state["out.weight"].reshape(-1, c.neck))
-        self.out_b = w("out.bias")
+        self.neck2 = cast(state[prefix + "neck.2.weight"].reshape(c.neck, -1))
+        self.neck3 = (w("neck.3.weight"), w("neck.3.bias"))
 
     @staticmethod
     def _norm(x: torch.Tensor, wb) -> torch.Tensor:
         return F.layer_norm(x, (x.shape[-1],), wb[0], wb[1], LN_EPS)
 
+    def _windowed(self, h: torch.Tensor, blk: dict) -> torch.Tensor:
+        """SAM's windowed attention of LN1(x) (T, grid^2, width): zero pad to
+        a multiple of the window, qkv and attention per window, windows put
+        back, padding cropped."""
+        c, win = self.config, blk["grid"]
+        t, g = h.shape[0], c.grid
+        n = -(-g // win)
+        h = F.pad(h.view(t, g, g, c.width), (0, 0, 0, n * win - g, 0, n * win - g))
+        h = h.view(t, n, win, n, win, c.width).transpose(2, 3).reshape(t * n * n, win * win, -1)
+        o = sam_attention(F.linear(h, *blk["qkv"]), blk["rel_h"], blk["rel_w"], c.heads, win)
+        o = o.view(t, n, n, win, win, c.width).transpose(2, 3).reshape(t, n * win, n * win, -1)
+        return o[:, :g, :g].reshape(t, g * g, c.width)
+
     def _block(self, x: torch.Tensor, blk: dict) -> torch.Tensor:
         c = self.config
-        qkv = F.linear(self._norm(x, blk["norm1"]), *blk["qkv"])
-        o = sam_attention(qkv, blk["rel_h"], blk["rel_w"], c.heads, c.grid)
+        h = self._norm(x, blk["norm1"])
+        if blk["grid"] != c.grid:
+            o = self._windowed(h, blk)
+        else:
+            o = sam_attention(F.linear(h, *blk["qkv"]), blk["rel_h"], blk["rel_w"], c.heads, c.grid)
         x = x + F.linear(o, *blk["proj"])
         h = F.gelu(F.linear(self._norm(x, blk["norm2"]), *blk["lin1"]))
         return x + F.linear(h, *blk["lin2"])
 
-    def encode(self, tiles: torch.Tensor) -> torch.Tensor:
+    def tokens(self, tiles: torch.Tensor) -> torch.Tensor:
         """(T, 3, tile, tile) -> (T, grid^2, width) tokens after the blocks."""
         c = self.config
         t = tiles.shape[0]
@@ -261,14 +309,39 @@ class CellposeSAM:
             x = self._block(x, blk)
         return x
 
+    def neck(self, x: torch.Tensor) -> torch.Tensor:
+        """(T, grid^2, width) tokens -> (T, grid^2, neck) embeddings."""
+        c = self.config
+        t = x.shape[0]
+        x = self._norm(F.linear(x, self.neck0), self.neck1)
+        cols = F.unfold(x.transpose(1, 2).reshape(t, c.neck, c.grid, c.grid), 3, padding=1)
+        return self._norm(F.linear(cols.transpose(1, 2), self.neck2), self.neck3)
+
+
+class CellposeSAM:
+    """The network on one device; `__call__` maps (T, 3, tile, tile) float
+    tiles to (T, maps, tile, tile) float32 maps."""
+
+    def __init__(self, state: dict[str, torch.Tensor], config: SamConfig = SamConfig(),
+                 device: str | torch.device = "cpu", dtype: torch.dtype = torch.bfloat16):
+        _check_state(state, config)
+        self.config, self.dtype = config, dtype
+        self.device = torch.device(device)
+        self.encoder = ViTEncoder(state, config, "encoder.", self.device, dtype)
+        self.out_w = state["out.weight"].reshape(-1, config.neck).to(self.device, dtype)
+        self.out_w = self.out_w.contiguous()
+        self.out_b = state["out.bias"].to(self.device, dtype).contiguous()
+
+    def encode(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(T, 3, tile, tile) -> (T, grid^2, width) tokens after the blocks."""
+        return self.encoder.tokens(tiles)
+
     def __call__(self, tiles: torch.Tensor) -> torch.Tensor:
         c = self.config
         if tiles.dim() != 4 or tuple(tiles.shape[1:]) != (3, c.tile, c.tile):
             raise ValueError(f"expected (T, 3, {c.tile}, {c.tile}) tiles, got {tuple(tiles.shape)}")
         t = tiles.shape[0]
-        x = self._norm(F.linear(self.encode(tiles), self.neck0), self.neck1)
-        cols = F.unfold(x.transpose(1, 2).reshape(t, c.neck, c.grid, c.grid), 3, padding=1)
-        x = self._norm(F.linear(cols.transpose(1, 2), self.neck2), self.neck3)
+        x = self.encoder.neck(self.encode(tiles))
         y = F.linear(x, self.out_w, self.out_b).float()
         y = y.transpose(1, 2).reshape(t, -1, c.grid, c.grid)
         return F.pixel_shuffle(y, c.patch)

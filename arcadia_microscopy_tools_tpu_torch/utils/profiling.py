@@ -80,6 +80,12 @@ class StageTimer:
                 self.totals[name] = self.totals.get(name, 0.0) + dt
                 self.counts[name] = self.counts.get(name, 0) + 1
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add `n` to counter `name`, a count with no time (such as the
+        tiles or images a stage handled): `counts[name]`, never in
+        `totals`."""
+        self.counts[name] = self.counts.get(name, 0) + n
+
     def report(self) -> str:
         lines = []
         for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):

@@ -172,7 +172,23 @@ Phases, each printing its lines:
    before it (the library yardstick); phases 5 and 7 check that the
    segmentation and U-Net plate paths launch it, phases 7 and 12 that the
    float32 forward and the trainer do not;
-18. the `kernels` JSON line, then the card's name and power limit, then
+18. SAM's automatic mask generator and its attention
+   (models/sam_decoder.py, models/sam_amg.py, models/sam_attention.py,
+   csrc/sam_attention.cu) - `batch_segment(network="sam")` on the 8 wells'
+   first three channels with seeded weights, once to build, then again
+   with kernel 8's launch counts zeroed just before it: per encoder
+   micro-batch of images the global instance launches once per global
+   block (4) and the window kernel once per windowed block (20), and no
+   image is lost; the call's time, stages and AMG counters; then kernel
+   8's two forms that Segment Anything's encoder runs: the global instance over the 64 x 64
+   grid (tables of 127 rows) on 1 and 2 images, and the window kernel on 1,
+   7, 25 and 200 windows of 14 x 14 (196 tokens, the pad keys among them as
+   any other), each at two spreads of q, k, v against its plain version
+   within SAM_ATTENTION_STEPS bfloat16 steps, launches counted per form;
+   each timed at one encoder micro-batch of 8 images (8 images of 4096
+   tokens; 200 windows) beside its bound, the plain version and SDPA with a
+   materialised bfloat16 bias; the grid-32 instance re-timed at 64 tiles;
+19. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
 Any failure exits non-zero before the final line. Without a CUDA device the
@@ -1025,6 +1041,154 @@ def unet_tail_phase(m, dev, b: int, size: int, launches: int, timed, say, smi: s
         "max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
         "bound_by": "bytes", "library_ms": tot["plain"],
     }
+
+
+def sam_amg_route(m, dev, rehearsal: bool, wells: np.ndarray, say) -> dict[str, int]:
+    """Phase 18's route: `batch_segment(network="sam")` on the wells' first
+    three channels with seeded weights, once to build, then with kernel
+    8's launch counts zeroed just before the call. Returns the call's
+    launches of each of kernel 8's forms, which must be one per block of
+    that form and encoder micro-batch."""
+    from arcadia_microscopy_tools_tpu_torch.models import sam_amg, sam_attention as sa
+    from arcadia_microscopy_tools_tpu_torch.models import sam_decoder, vit_sam
+    from arcadia_microscopy_tools_tpu_torch.models import segmentation as seg_mod
+
+    model = m.pkg.SegmentationModel(device=dev, network="sam")
+    if rehearsal:
+        model._sam_model_config = sam_decoder.SamModelConfig(
+            vit_sam.SamConfig(width=64, depth=4, heads=4, mlp=256, patch=16, tile=128, neck=32,
+                              global_blocks=(2,), sam_grid=8, sam_window=3, window=3),
+            sam_decoder.DecoderConfig(width=32, depth=2, heads=2, mlp=64, iou_hidden=32))
+        model._amg = sam_amg.AmgSettings(points_per_side=4, points_per_batch=8)
+        imgs = [np.asarray(w[:3], dtype=np.float64) for w in m.testing.synthetic_wells(
+            8, 4, 256, 256, 20, seed=18)]
+    else:
+        imgs = [np.asarray(w[:3], dtype=np.float64) for w in wells]
+    model.batch_segment(imgs, show_progress=False)  # builds the kernels and the weights
+    enc = model.network.config.image
+    n_global = sum(1 for i in range(enc.depth) if i in enc.global_blocks)
+    sa.reset_launch_counts()
+    model.stages = m.profiling.StageTimer()
+    t0 = time.perf_counter()
+    labels = model.batch_segment(imgs, show_progress=False)
+    call_s = time.perf_counter() - t0
+    launches = {k: sa.launch_counts[k] for k in ("sam_attention", "sam_window_attention")}
+    micro = -(-len(imgs) // seg_mod.SAM_AMG_MICRO_BATCH)
+    want = {"sam_attention": n_global * micro,
+            "sam_window_attention": (enc.depth - n_global) * micro}
+    st = model.stages
+    counters = {k: v for k, v in st.counts.items() if k.startswith("segment.amg.")
+                or k == "segment.encoder.images"}
+    say(f"[sam] batch_segment(network='sam') on {len(imgs)} images of {imgs[0].shape}: "
+        f"{call_s:.3f} s ({len(imgs) / call_s:.2f} images/s); kernel 8 launches {launches} "
+        f"({micro} encoder micro-batch(es): {want} due); stages "
+        f"{json.dumps({k: round(v, 4) for k, v in st.totals.items()})}; counters "
+        f"{json.dumps(counters)}; cells per image {[int(x.max()) for x in labels]}")
+    if any(x is None for x in labels):
+        raise RuntimeError("the sam route lost an image")
+    if not rehearsal and launches != want:
+        raise RuntimeError(f"the sam route launched kernel 8 {launches}, not {want}")
+    return launches
+
+
+def sam_attention_forms_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say,
+                              smi: str) -> list[dict]:
+    """Phase 18: the AMG route's launches of kernel 8 (`sam_amg_route`);
+    kernel 8's global instance at SAM's 64 x 64 grid and its window kernel
+    on 14 x 14 windows, each against its plain version and timed at one
+    encoder micro-batch of 8 images beside its bound (the benchmark's: the
+    4096 real tokens of each image, in windows also the pad keys' k and v,
+    which are the qkv bias); the grid-32 instance re-timed. The `kernels`
+    line gives each form's launches in the route's call."""
+    from arcadia_microscopy_tools_tpu_torch.models import sam_attention as sa
+
+    route = sam_amg_route(m, dev, rehearsal, wells, say)
+
+    heads, hd = 16, 64
+    gq = torch.Generator(device=dev).manual_seed(18)
+
+    def case(tiles: int, grid: int, scale: float = 1.0):
+        qkv = (scale * torch.randn(tiles, grid * grid, 3 * heads * hd, generator=gq, device=dev))
+        rh, rw = ((0.05 * torch.randn(2 * grid - 1, hd, generator=gq, device=dev)).to(
+            torch.bfloat16) for _ in range(2))
+        return qkv.to(torch.bfloat16), rh, rw
+
+    def bound_ms(images: int, grid: int, side: int) -> float:
+        """`images` of grid^2 real tokens, each query against side^2 keys."""
+        n = images * grid * grid
+        flop = heads * n * (4.0 * side * side * hd + 4.0 * side * hd)
+        pad = 2 * heads * hd if side < grid else 0
+        byt = 2.0 * (4 * n * heads * hd + pad + 2 * (2 * side - 1) * hd)
+        return max(flop / BF16_TENSOR_FLOP_PER_S, byt / HBM_BYTES_PER_S) * 1e3
+
+    # per form: grid (or window side), the checked counts, the timed count,
+    # and the images of 64 x 64 tokens that timed count holds
+    forms = {"sam_attention": (64, [1, 2], 8, 8),
+             "sam_window_attention": (14, [1, 7, 25, 200], 200, 8)}
+    image_grid = 64
+    if rehearsal:
+        forms = {"sam_attention": (8, [1], 1, 1), "sam_window_attention": (3, [1, 2], 2, 1)}
+        heads, image_grid = 1, 4
+    rows = []
+    for kernel, (grid, counts, timed_tiles, images) in forms.items():
+        sa.reset_launch_counts()
+        errs = {}
+        for tiles in counts:
+            for scale in (1.0, 3.0):
+                q_, h_, w_ = case(tiles, grid, scale)
+                want = sa.sam_attention_plain(q_, h_, w_, heads, grid).float()
+                got = sa.sam_attention(q_, h_, w_, heads, grid).float()
+                err = float((got - want).abs().max())
+                errs[f"{tiles} x {grid}^2, spread {scale}"] = {
+                    "max_abs_err": err, "bf16_steps": bf16_steps(err, want)}
+                del want, got
+        worst = max(e["bf16_steps"] for e in errs.values())
+        launched = sa.launch_counts[kernel]
+        say(f"[check] {kernel} (grid {grid}) against its plain version: {json.dumps(errs)}; "
+            f"launches {sa.launch_counts}")
+        if not rehearsal and (worst > SAM_ATTENTION_STEPS or launched != 2 * len(counts)):
+            raise RuntimeError(f"{kernel}: {worst:.2f} bf16 steps (at most "
+                               f"{SAM_ATTENTION_STEPS}), launches {sa.launch_counts}")
+        qkv, rh, rw = case(timed_tiles, grid)
+        sub = qkv[: max(1, timed_tiles // 8)]
+        ms, plain_sub = timed(lambda: sa.sam_attention(qkv, rh, rw, heads, grid),
+                              lambda: sa.sam_attention_plain(sub, rh, rw, heads, grid))
+        plain = plain_sub * timed_tiles / sub.shape[0]
+
+        def sdpa_with_bias():
+            q8, k8, v8 = sa.split_qkv(qkv, heads)
+            idx = torch.arange(grid, device=dev)
+            tab_h = rh.float()[idx[:, None] - idx[None, :] + grid - 1]
+            tab_w = rw.float()[idx[:, None] - idx[None, :] + grid - 1]
+            r_q = q8.float().view(-1, grid, grid, hd)
+            bias = (torch.einsum("nhwc,hkc->nhwk", r_q, tab_h)[..., :, None]
+                    + torch.einsum("nhwc,wkc->nhwk", r_q, tab_w)[..., None, :])
+            bias = bias.reshape(-1, grid * grid, grid * grid).to(torch.bfloat16)
+            return torch.nn.functional.scaled_dot_product_attention(q8, k8, v8, attn_mask=bias)
+
+        library = time_cuda(sdpa_with_bias, reps=3, warmup=1) if not rehearsal else None
+        bound = bound_ms(images, image_grid, grid)
+        say(f"[time] {kernel} (kernel 8, grid {grid}): {ms:.4f} ms per micro-batch of "
+            f"{images} images ({timed_tiles} {'windows' if grid < image_grid else 'images'}; "
+            f"{bound / ms:.1%} of its {bound:.4f} ms bound); plain {plain:.3f} ms (from "
+            f"{sub.shape[0]}); SDPA with a materialised bf16 bias {library} ms; worst "
+            f"{worst:.2f} bf16 steps; launched {route[kernel]} times in the route's call; "
+            f"card: {smi}")
+        rows.append({"name": f"{kernel} (grid {grid})", "route": "cuda",
+                     "source": "arcadia_microscopy_tools_tpu_torch/csrc/sam_attention.cu",
+                     "replaces": None, "launches": route[kernel], "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "library_ms": library, "bf16_steps": worst})
+        del qkv
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if not rehearsal:
+        qkv, rh, rw = case(64, 32)
+        ms32 = [time_cuda(lambda: sa.sam_attention(qkv, rh, rw, heads, 32), reps=20)
+                for _ in range(2)]
+        say(f"[time] sam_attention grid 32 (Cellpose-SAM's) re-timed at 64 tiles: "
+            f"{ms32[0]:.4f}, {ms32[1]:.4f} ms; card: {smi}")
+        del qkv
+    return rows
 
 
 def cellpose_sam_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say, smi: str) -> dict:
@@ -2728,10 +2892,13 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     kernels.append(unet_tail_phase(m, dev, n_wells, seg_size, seg_launches["unet_tail"], timed,
                                    say, smi))
 
+    # -- 18. SAM's AMG route and attention forms (kernel 8 at grid 64, in windows) --
+    kernels.extend(sam_attention_forms_phase(m, dev, rehearsal, wells, timed, say, smi))
+
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)
 
-    # -- 18. result -----------------------------------------------------------------
+    # -- 19. result -----------------------------------------------------------------
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     print(smi)

@@ -69,6 +69,8 @@ import arcadia_microscopy_tools_tpu_torch.utils.profiling
 import arcadia_microscopy_tools_tpu_torch.models
 import arcadia_microscopy_tools_tpu_torch.models.synthetic
 arcadia_microscopy_tools_tpu_torch.models.synthetic.load_fixture_stats()
+import arcadia_microscopy_tools_tpu_torch.models.sam_amg
+import arcadia_microscopy_tools_tpu_torch.models.sam_decoder
 from arcadia_microscopy_tools_tpu_torch import MicroscopyImage
 image = MicroscopyImage.from_nd2_path("tests/data/example-multichannel.nd2")
 image.device_intensities("cpu")
