@@ -51,7 +51,15 @@ Departures from SAM's code, none of which changes what it computes:
   its batch of prompts; SAM's `repeat_interleave` copies appear first in block 0's
   residual, where the prompts part ways;
 - the attention runs as explicit products (the decoder's keys are 7 tokens
-  one way and 4096 image tokens the other, at heads of 16 and 32).
+  one way and 4096 image tokens the other, at heads of 16 and 32);
+- the mask head (`output_upscaling` and the hypernetwork product) is one
+  call of `models/sam_upscale_cuda.py`: on the card, for bfloat16 at SAM's
+  widths, kernel 10 (`csrc/sam_upscale.cu`), one fused pass that rounds to
+  bfloat16 where the PyTorch sequence does (after each product, each bias
+  add, the LayerNorm and each GELU; only the order of the sums inside the
+  products and the LayerNorm's statistics differ), elsewhere that sequence
+  itself; mask token 0's hypernetwork and product, whose mask `decode`
+  drops, are not computed.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
+from .sam_upscale_cuda import kernel_takes, sam_upscale, sam_upscale_plain
 from .vit_sam import SamConfig, ViTEncoder, encoder_shapes
 
 __all__ = [
@@ -74,7 +83,6 @@ __all__ = [
 ]
 
 DECODER_LN_EPS = 1e-5
-LN2D_EPS = 1e-6
 MASK_TOKENS = 4  # multimask outputs + 1
 MASK_IN_CHANS = 16  # the prompt encoder's mask_downscaling, loaded and unused
 # SAM's pixel normalisation of the uint8 RGB input
@@ -350,7 +358,25 @@ class SegmentAnything:
         """One image's (grid^2, width) embedding and (P, 2) points in the
         input frame -> (P, 3, 4 grid, 4 grid) mask logits in the decoder's
         dtype and (P, 3) float32 IoU predictions."""
-        d, g = self.config.decoder, self.config.image.grid
+        g = self.config.image.grid
+        queries, keys = self.two_way(embedding, points)
+        # the hypernetworks of mask tokens 1-3: mask 0 is not returned
+        hyper = torch.stack([self._mlp(queries[:, 1 + i], self.hyper[i])
+                             for i in range(1, MASK_TOKENS)], dim=1)  # (P, 3, width / 8)
+        # kernel 10 where it computes these widths and dtype (on the CPU
+        # `sam_upscale` runs the plain version too)
+        upscale = sam_upscale if kernel_takes(keys.shape[-1], g, keys.dtype) else sam_upscale_plain
+        masks = upscale(keys, self.up0[0], self.up0[1], *self.up1, *self.up3, hyper, g)
+        iou = self._mlp(queries[:, 0], self.iou_head).float()
+        return masks, iou[:, 1:]
+
+    def two_way(self, embedding: torch.Tensor, points: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The prompt encoder and the two-way transformer: one image's
+        (grid^2, width) embedding and (P, 2) points -> the (P, 7, width)
+        output and prompt tokens after `norm_final_attn` and the (P, grid^2,
+        width) image side after the last block's `norm4`."""
+        d = self.config.decoder
         n = points.shape[0]
         tokens_pe = torch.cat([self.output_tokens.expand(n, -1, -1), self.point_tokens(points)], 1)
         src = embedding + self.no_mask  # the image side of block 0, the same for every prompt
@@ -383,15 +409,4 @@ class SegmentAnything:
             keys = self._ln(keys, blk["norm4"])
         q = queries + tokens_pe
         queries = self._ln(queries + self._attend(self.final, q, keys + pos, keys), self.norm_final)
-
-        # output_upscaling, channels last: ConvT, LayerNorm2d, GELU, ConvT, GELU
-        x = F.linear(keys, self.up0[0]).view(n, g, g, -1, 2, 2)
-        x = x.permute(0, 1, 4, 2, 5, 3).reshape(n, 2 * g, 2 * g, -1) + self.up0[1]
-        x = F.gelu(self._ln(x, self.up1, LN2D_EPS))
-        x = F.linear(x, self.up3[0]).view(n, 2 * g, 2 * g, -1, 2, 2)
-        x = F.gelu(x.permute(0, 1, 4, 2, 5, 3).reshape(n, 4 * g, 4 * g, -1) + self.up3[1])
-        hyper = torch.stack([self._mlp(queries[:, 1 + i], self.hyper[i])
-                             for i in range(MASK_TOKENS)], dim=1)  # (P, 4, width / 8)
-        masks = torch.matmul(hyper, x.view(n, 16 * g * g, -1).transpose(1, 2))
-        iou = self._mlp(queries[:, 0], self.iou_head).float()
-        return masks[:, 1:].view(n, MASK_TOKENS - 1, 4 * g, 4 * g), iou[:, 1:]
+        return queries, keys

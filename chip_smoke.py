@@ -172,13 +172,15 @@ Phases, each printing its lines:
    before it (the library yardstick); phases 5 and 7 check that the
    segmentation and U-Net plate paths launch it, phases 7 and 12 that the
    float32 forward and the trainer do not;
-18. SAM's automatic mask generator and its attention
+18. SAM's automatic mask generator, its attention and its mask head
    (models/sam_decoder.py, models/sam_amg.py, models/sam_attention.py,
-   csrc/sam_attention.cu) - `batch_segment(network="sam")` on the 8 wells'
-   first three channels with seeded weights, once to build, then again
-   with kernel 8's launch counts zeroed just before it: per encoder
+   csrc/sam_attention.cu, models/sam_upscale_cuda.py, csrc/sam_upscale.cu)
+   - `batch_segment(network="sam")` on the 8 wells' first three channels
+   with seeded weights, once to build, then again with kernel 8's and
+   kernel 10's launch counts zeroed just before it: per encoder
    micro-batch of images the global instance launches once per global
-   block (4) and the window kernel once per windowed block (20), and no
+   block (4) and the window kernel once per windowed block (20), kernel 10
+   once per prompt batch (16 an image, 128 for the 8 wells), and no
    image is lost; the call's time, stages and AMG counters; then kernel
    8's two forms that Segment Anything's encoder runs: the global instance over the 64 x 64
    grid (tables of 127 rows) on 1 and 2 images, and the window kernel on 1,
@@ -188,6 +190,11 @@ Phases, each printing its lines:
    each timed at one encoder micro-batch of 8 images (8 images of 4096
    tokens; 200 windows) beside its bound, the plain version and SDPA with a
    materialised bfloat16 bias; the grid-32 instance re-timed at 64 tiles;
+   then kernel 10 against its plain version at 1, 7 and 64 prompts on
+   grids 64 and 16 at two spreads (each mask within SAM_ATTENTION_STEPS
+   bfloat16 steps of its largest |logit|; the share of bit-equal logits),
+   timed at one prompt batch (64 prompts, grid 64) beside its bound and the
+   plain version;
 19. the `kernels` JSON line, then the card's name and power limit, then
    the final `{"ok": true, ...}` line.
 
@@ -237,7 +244,7 @@ CSRC = "arcadia_microscopy_tools_tpu_torch/csrc"
 RANK_BRANCHES = ((35, "sliding, 4096-key sort"), (74, "sliding, 8192-key sort"),
                  (225, "bisection on staged keys"))
 KERNEL_LIBRARIES = ["cc_local", "conv3x3_fused", "gn_moments", "diffuse", "rank_select",
-                    "percentile_stretch", "sam_attention", "unet_tail"]
+                    "percentile_stretch", "sam_attention", "unet_tail", "sam_upscale"]
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "tests" / "data"
 ND2_CHANNELS = ["DAPI", "FITC", "TRITC", "CY5"]
@@ -1046,10 +1053,12 @@ def unet_tail_phase(m, dev, b: int, size: int, launches: int, timed, say, smi: s
 def sam_amg_route(m, dev, rehearsal: bool, wells: np.ndarray, say) -> dict[str, int]:
     """Phase 18's route: `batch_segment(network="sam")` on the wells' first
     three channels with seeded weights, once to build, then with kernel
-    8's launch counts zeroed just before the call. Returns the call's
-    launches of each of kernel 8's forms, which must be one per block of
-    that form and encoder micro-batch."""
+    8's and kernel 10's launch counts zeroed just before the call. Returns
+    the call's launches of each of kernel 8's forms, which must be one per
+    block of that form and encoder micro-batch, and of kernel 10, which must
+    be one per prompt batch (`decode` call) of every image."""
     from arcadia_microscopy_tools_tpu_torch.models import sam_amg, sam_attention as sa
+    from arcadia_microscopy_tools_tpu_torch.models import sam_upscale_cuda as su
     from arcadia_microscopy_tools_tpu_torch.models import sam_decoder, vit_sam
     from arcadia_microscopy_tools_tpu_torch.models import segmentation as seg_mod
 
@@ -1068,38 +1077,45 @@ def sam_amg_route(m, dev, rehearsal: bool, wells: np.ndarray, say) -> dict[str, 
     enc = model.network.config.image
     n_global = sum(1 for i in range(enc.depth) if i in enc.global_blocks)
     sa.reset_launch_counts()
+    su.reset_launch_counts()
     model.stages = m.profiling.StageTimer()
     t0 = time.perf_counter()
     labels = model.batch_segment(imgs, show_progress=False)
     call_s = time.perf_counter() - t0
     launches = {k: sa.launch_counts[k] for k in ("sam_attention", "sam_window_attention")}
+    launches["sam_upscale"] = su.launch_counts["sam_upscale"]
     micro = -(-len(imgs) // seg_mod.SAM_AMG_MICRO_BATCH)
+    amg = model._amg or sam_amg.AmgSettings()  # None is the published defaults
+    batches = -(-amg.points_per_side ** 2 // amg.points_per_batch)
     want = {"sam_attention": n_global * micro,
-            "sam_window_attention": (enc.depth - n_global) * micro}
+            "sam_window_attention": (enc.depth - n_global) * micro,
+            "sam_upscale": batches * len(imgs)}
     st = model.stages
     counters = {k: v for k, v in st.counts.items() if k.startswith("segment.amg.")
                 or k == "segment.encoder.images"}
     say(f"[sam] batch_segment(network='sam') on {len(imgs)} images of {imgs[0].shape}: "
-        f"{call_s:.3f} s ({len(imgs) / call_s:.2f} images/s); kernel 8 launches {launches} "
-        f"({micro} encoder micro-batch(es): {want} due); stages "
+        f"{call_s:.3f} s ({len(imgs) / call_s:.2f} images/s); kernel 8 and 10 launches "
+        f"{launches} ({micro} encoder micro-batch(es), {batches} prompt batches an image: "
+        f"{want} due); stages "
         f"{json.dumps({k: round(v, 4) for k, v in st.totals.items()})}; counters "
         f"{json.dumps(counters)}; cells per image {[int(x.max()) for x in labels]}")
     if any(x is None for x in labels):
         raise RuntimeError("the sam route lost an image")
     if not rehearsal and launches != want:
-        raise RuntimeError(f"the sam route launched kernel 8 {launches}, not {want}")
+        raise RuntimeError(f"the sam route launched kernels 8 and 10 {launches}, not {want}")
     return launches
 
 
 def sam_attention_forms_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say,
-                              smi: str) -> list[dict]:
-    """Phase 18: the AMG route's launches of kernel 8 (`sam_amg_route`);
+                              smi: str) -> tuple[list[dict], dict[str, int]]:
+    """Phase 18: the AMG route's launches of kernels 8 and 10 (`sam_amg_route`);
     kernel 8's global instance at SAM's 64 x 64 grid and its window kernel
     on 14 x 14 windows, each against its plain version and timed at one
     encoder micro-batch of 8 images beside its bound (the benchmark's: the
     4096 real tokens of each image, in windows also the pad keys' k and v,
     which are the qkv bias); the grid-32 instance re-timed. The `kernels`
-    line gives each form's launches in the route's call."""
+    line gives each form's launches in the route's call; the route's counts
+    are returned beside its rows."""
     from arcadia_microscopy_tools_tpu_torch.models import sam_attention as sa
 
     route = sam_amg_route(m, dev, rehearsal, wells, say)
@@ -1188,7 +1204,79 @@ def sam_attention_forms_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed,
         say(f"[time] sam_attention grid 32 (Cellpose-SAM's) re-timed at 64 tiles: "
             f"{ms32[0]:.4f}, {ms32[1]:.4f} ms; card: {smi}")
         del qkv
-    return rows
+    return rows, route
+
+
+def sam_upscale_operands(prompts: int, grid: int, dev, seed: int, spread: float = 1.0):
+    """Random operands of kernel 10 at SAM's widths in `decode`'s layout:
+    keys, the ConvTs (weights N(0, 1 / fan_in), the LayerNorm's weight 1 +
+    N(0, 0.1^2), biases N(0, 0.02^2)) and three hypernetwork rows."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+
+    return (r(prompts, grid * grid, 256, scale=spread), r(256, 256, scale=256**-0.5),
+            r(64, scale=0.02), (1 + 0.1 * torch.randn(64, generator=g)).to(dev, torch.bfloat16),
+            r(64, scale=0.02), r(128, 64, scale=64**-0.5), r(32, scale=0.02),
+            r(prompts, 3, 32, scale=spread), grid)
+
+
+def mask_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst mask's largest |got - want| in bfloat16 steps at that
+    mask's largest |logit|."""
+    g, w = got.float().flatten(2), want.float().flatten(2)
+    step = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1).clamp_min(1e-30))) - 7)
+    return float(((g - w).abs().amax(-1) / step).max())
+
+
+def sam_upscale_phase(m, dev, rehearsal: bool, launches: int, timed, say, smi: str) -> dict:
+    """Phase 18's kernel 10 (models/sam_upscale_cuda.py, csrc/sam_upscale.cu):
+    against its plain version at P = 1, 7 and 64 prompts on grids 64 and 16
+    and two spreads, each mask within SAM_ATTENTION_STEPS bfloat16 steps of
+    its largest |logit|, with the share of bit-equal logits; then timed at
+    one prompt batch (P = 64, grid 64) beside its bound (the three products'
+    operations, or keys, weights and logits once, whichever is larger) and
+    the plain version, the PyTorch sequence `decode` ran before it (so the
+    library yardstick too). `launches` is the AMG route's count."""
+    from arcadia_microscopy_tools_tpu_torch.models import sam_upscale_cuda as su
+
+    cases = [(1, 8), (2, 8)] if rehearsal else [(1, 64), (7, 64), (64, 64), (1, 16), (7, 16),
+                                                  (64, 16)]
+    su.reset_launch_counts()
+    checks = {}
+    for prompts, grid in cases:
+        for spread in (1.0, 4.0):
+            args = sam_upscale_operands(prompts, grid, dev, prompts * 100 + grid, spread)
+            got, want = su.sam_upscale(*args), su.sam_upscale_plain(*args)
+            equal = float((got.view(torch.int16) == want.view(torch.int16)).float().mean())
+            checks[f"P {prompts}, grid {grid}, spread {spread}"] = {
+                "bf16_steps": mask_steps(got, want), "bit_equal": equal}
+    worst = max(c["bf16_steps"] for c in checks.values())
+    say(f"[check] sam_upscale (kernel 10) against its plain version, worst mask in bf16 steps "
+        f"and the share of bit-equal logits: {json.dumps(checks)}; launches {su.launch_counts}")
+    if not rehearsal and (worst > SAM_ATTENTION_STEPS
+                          or su.launch_counts["sam_upscale"] != 2 * len(cases)):
+        raise RuntimeError(f"sam_upscale: {worst:.2f} bf16 steps (at most {SAM_ATTENTION_STEPS}), "
+                           f"launches {su.launch_counts}")
+    prompts, grid = (2, 8) if rehearsal else (64, 64)
+    args = sam_upscale_operands(prompts, grid, dev, 18)
+    ms, plain_ms = timed(lambda: su.sam_upscale(*args), lambda: su.sam_upscale_plain(*args))
+    pixels = prompts * grid * grid
+    flop = 2.0 * pixels * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 3)
+    nbytes = 2.0 * (pixels * 256 + prompts * 3 * 16 * grid * grid + 256 * 256 + 128 * 64
+                    + prompts * 3 * 32)
+    ops_ms, bytes_ms = flop / BF16_TENSOR_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    say(f"[time] sam_upscale (kernel 10) at one prompt batch ({prompts} prompts, grid {grid}): "
+        f"{ms:.4f} ms, {bound / ms:.1%} of its {bound:.4f} ms bound (operations {ops_ms:.4f}: "
+        f"{flop / 1e9:.1f} GFLOP; bytes {bytes_ms:.4f}: {nbytes / 1e6:.0f} MB); plain (the PyTorch "
+        f"sequence decode ran before it) {plain_ms:.3f} ms; worst {worst:.2f} bf16 steps; "
+        f"launched {launches} times in the route's call; card: {smi}")
+    return {"name": "sam_upscale", "route": "cuda", "source": f"{CSRC}/sam_upscale.cu",
+            "replaces": None, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": plain_ms, "bf16_steps": worst}
 
 
 def cellpose_sam_phase(m, dev, rehearsal: bool, wells: np.ndarray, timed, say, smi: str) -> dict:
@@ -2892,8 +2980,11 @@ def _smoke(args, cleanup: contextlib.ExitStack) -> int:
     kernels.append(unet_tail_phase(m, dev, n_wells, seg_size, seg_launches["unet_tail"], timed,
                                    say, smi))
 
-    # -- 18. SAM's AMG route and attention forms (kernel 8 at grid 64, in windows) --
-    kernels.extend(sam_attention_forms_phase(m, dev, rehearsal, wells, timed, say, smi))
+    # -- 18. SAM's AMG route, attention forms (kernel 8 at grid 64, in windows) and
+    # mask head (kernel 10) --
+    rows, route = sam_attention_forms_phase(m, dev, rehearsal, wells, timed, say, smi)
+    kernels.extend(rows)
+    kernels.append(sam_upscale_phase(m, dev, rehearsal, route["sam_upscale"], timed, say, smi))
 
     if args.compare_with:
         compare_with(args.compare_with, kernels, conv_ms, say)

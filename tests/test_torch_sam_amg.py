@@ -17,6 +17,11 @@ Tolerances, each with its reason:
   predictions within 0.05. Weights, activations and the residual stream are
   rounded to 8 bits of mantissa (~0.4% each) through 4 blocks and the
   decoder; the readings are ~0.01-0.03.
+- kernel 10 on the card against its plain version: each mask within 2
+  bfloat16 steps of its largest |logit| (`chip_smoke.py`'s gate for kernel
+  8). It rounds where the plain version rounds but sums its products in
+  another order and takes the LayerNorm's statistics in two passes; the
+  readings are at most 1 step, with 99.99% of the logits bit for bit.
 Each planted network fault (the pad keys masked, block 0's self-attention
 given a residual) moves the float32 outputs 100 times past the float32
 tolerance. The tail is held exactly: the labels of the float32 route equal
@@ -32,9 +37,11 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import reference_sam_amg as ref
-from arcadia_microscopy_tools_tpu_torch.models import sam_amg, sam_attention, sam_decoder, vit_sam
+from arcadia_microscopy_tools_tpu_torch.models import (sam_amg, sam_attention, sam_decoder,
+                                                       sam_upscale_cuda, vit_sam)
 from arcadia_microscopy_tools_tpu_torch.models.segmentation import SegmentationModel
 from arcadia_microscopy_tools_tpu_torch.models.stretch_cuda import percentile_stretch_plain
 from arcadia_microscopy_tools_tpu_torch.utils.profiling import StageTimer
@@ -463,3 +470,168 @@ def test_windowed_encoder_block_on_the_card_matches_the_cpu():
         got = card._block(x.cuda().bfloat16(), blk_card).float().cpu()
         want = cpu._block(x, blk_cpu)
         assert _gap(got - x, want - x) < BF16_GAP
+
+
+# -- kernel 10: the mask head ------------------------------------------------
+
+def _parent_mask_head(keys, up0, up1, up3, hyper4, g):
+    """The mask head as `decode` ran it before kernel 10, verbatim but for
+    `self.`: all four masks, then mask 0 dropped."""
+    n = keys.shape[0]
+    x = F.linear(keys, up0[0]).view(n, g, g, -1, 2, 2)
+    x = x.permute(0, 1, 4, 2, 5, 3).reshape(n, 2 * g, 2 * g, -1) + up0[1]
+    x = F.gelu(F.layer_norm(x, (x.shape[-1],), up1[0], up1[1], 1e-6))
+    x = F.linear(x, up3[0]).view(n, 2 * g, 2 * g, -1, 2, 2)
+    x = F.gelu(x.permute(0, 1, 4, 2, 5, 3).reshape(n, 4 * g, 4 * g, -1) + up3[1])
+    masks = torch.matmul(hyper4, x.view(n, 16 * g * g, -1).transpose(1, 2))
+    return masks[:, 1:].view(n, 3, 4 * g, 4 * g)
+
+
+def _head_operands(n: int, grid: int, width: int, dtype, seed: int, spread: float = 1.0,
+                   device="cpu"):
+    """Random keys, ConvT weights in `decode`'s layout and four hypernetwork
+    rows; weights N(0, 1 / fan_in), the LayerNorm's weight 1 + N(0, 0.1^2)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(device, dtype)
+
+    keys = r(n, grid * grid, width, scale=spread)
+    up0 = (r(width, width, scale=width**-0.5), r(width // 4, scale=0.02))
+    up1 = ((1 + 0.1 * torch.randn(width // 4, generator=g)).to(device, dtype),
+           r(width // 4, scale=0.02))
+    up3 = (r(width // 2, width // 4, scale=(width // 4) ** -0.5), r(width // 8, scale=0.02))
+    hyper4 = r(n, 4, width // 8, scale=spread)
+    return keys, up0, up1, up3, hyper4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,grid", [(256, 64), (256, 16), (32, 8)])
+def test_upscale_plain_equals_the_inline_sequence(dtype, width, grid):
+    """At SAM's widths and at a small one: the plain version (and the
+    wrapper, which runs it on the CPU) gives the replaced sequence's bits."""
+    keys, up0, up1, up3, hyper4 = _head_operands(2, grid, width, dtype, seed=width + grid)
+    want = _parent_mask_head(keys, up0, up1, up3, hyper4, grid)
+    args = (keys, *up0, *up1, *up3, hyper4[:, 1:].contiguous(), grid)
+    got = sam_upscale_cuda.sam_upscale_plain(*args)
+    assert got.dtype == dtype and got.shape == (2, 3, 4 * grid, 4 * grid)
+    assert torch.equal(got, want)
+    before = dict(sam_upscale_cuda.launch_counts)
+    assert torch.equal(sam_upscale_cuda.sam_upscale(*args), want)
+    assert sam_upscale_cuda.launch_counts == before  # no launch on the CPU
+
+
+# SAM's decoder widths on a 16 x 16 token grid, one of kernel 10's instances
+SAM_DECODER = sam_decoder.SamModelConfig(
+    dataclasses.replace(IMAGE, neck=256, tile=256, sam_grid=16), sam_decoder.DecoderConfig())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("config", [CONFIG, SAM_DECODER], ids=["small", "sam_widths"])
+def test_decode_keeps_the_parent_bits(dtype, config):
+    """`decode` on the CPU: the logits of the parent's mask head on the
+    two-way transformer's output, bit for bit, and the same IoUs."""
+    state = sam_decoder.seeded_state_dict(config, torch.Generator().manual_seed(14))
+    net = sam_decoder.SegmentAnything(state, config, dtype=dtype)
+    g, w = config.image.grid, config.decoder.width
+    emb = torch.randn(g * g, w, generator=torch.Generator().manual_seed(15)).to(dtype)
+    logits, iou = net.decode(emb, POINTS.float())
+    queries, keys = net.two_way(emb, POINTS.float())
+    hyper4 = torch.stack([net._mlp(queries[:, 1 + i], net.hyper[i]) for i in range(4)], dim=1)
+    assert torch.equal(logits, _parent_mask_head(keys, net.up0, net.up1, net.up3, hyper4, g))
+    assert torch.equal(iou, net._mlp(queries[:, 0], net.iou_head).float()[:, 1:])
+
+
+def _bad_operands(case: str):
+    keys, up0, up1, up3, hyper4 = _head_operands(2, 8, 256, torch.bfloat16, seed=16)
+    args = [keys, *up0, *up1, *up3, hyper4[:, 1:].contiguous(), 8]
+    if case == "tokens":
+        args[0] = keys[:, :60]
+    elif case == "up0":
+        args[1] = up0[0][:, :128]
+    elif case == "up3_bias":
+        args[6] = torch.zeros(16, dtype=torch.bfloat16)
+    elif case == "hyper":
+        args[7] = hyper4[:, 1:, :16]
+    elif case == "prompts":
+        args[7] = hyper4[:1, 1:]
+    elif case == "mixed_dtypes":
+        args[1] = up0[0].float()
+    elif case == "integer":
+        args = [a.to(torch.int32) if isinstance(a, torch.Tensor) else a for a in args]
+    elif case == "meta":
+        args = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    return args
+
+
+@pytest.mark.parametrize("case", ["tokens", "up0", "up3_bias", "hyper", "prompts",
+                                  "mixed_dtypes", "integer", "meta"])
+def test_upscale_refuses_bad_operands(case):
+    with pytest.raises(ValueError):
+        sam_upscale_cuda.sam_upscale(*_bad_operands(case))
+    if case != "meta":
+        with pytest.raises(ValueError):
+            sam_upscale_cuda.sam_upscale_plain(*_bad_operands(case))
+
+
+def test_kernel_takes_sam_widths_only():
+    takes = sam_upscale_cuda.kernel_takes
+    assert takes(256, 64, torch.bfloat16) and takes(256, 16, torch.bfloat16)
+    assert not takes(256, 64, torch.float32)  # the float32 decoder runs the plain version
+    assert not takes(32, 8, torch.bfloat16)  # the tests' small decoder
+    assert not takes(256, 8, torch.bfloat16) and not takes(256, 32, torch.bfloat16)
+
+
+# -- kernel 10 on the card --------------------------------------------------
+
+def _masks_within_steps(got: torch.Tensor, want: torch.Tensor, steps: float = 2.0) -> float:
+    """The worst mask's largest |got - want| in bfloat16 steps at that
+    mask's largest |logit|."""
+    g, w = got.float().flatten(2), want.float().flatten(2)
+    top = w.abs().amax(-1).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float(((g - w).abs().amax(-1) / step).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [64, 16])
+@pytest.mark.parametrize("prompts", [1, 7, 64])
+def test_upscale_kernel_matches_plain_on_the_card(prompts, grid):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for spread in (1.0, 4.0):
+        keys, up0, up1, up3, hyper4 = _head_operands(prompts, grid, 256, torch.bfloat16,
+                                                     seed=prompts * 100 + grid, spread=spread,
+                                                     device="cuda")
+        args = (keys, *up0, *up1, *up3, hyper4[:, 1:].contiguous(), grid)
+        before = sam_upscale_cuda.launch_counts["sam_upscale"]
+        got = sam_upscale_cuda.sam_upscale(*args)
+        assert sam_upscale_cuda.launch_counts["sam_upscale"] == before + 1
+        want = sam_upscale_cuda.sam_upscale_plain(*args)
+        worst = _masks_within_steps(got, want)
+        equal = float((got.view(torch.int16) == want.view(torch.int16)).float().mean())
+        print(f"kernel 10, P {prompts}, grid {grid}, spread {spread}: worst mask {worst:.3f} "
+              f"bf16 steps, {equal:.4%} of the logits bit for bit")
+        assert worst <= 2.0
+
+
+@pytest.mark.gpu
+def test_decode_launches_the_upscale_kernel_once_on_the_card():
+    """SAM's decoder widths on the card: one launch per bfloat16 `decode`,
+    within two bf16 steps of the plain mask head on the same transformer
+    output; none for the float32 decoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    state = sam_decoder.seeded_state_dict(SAM_DECODER, torch.Generator().manual_seed(17))
+    g = SAM_DECODER.image.grid
+    emb = torch.randn(g * g, 256, generator=torch.Generator().manual_seed(18))
+    for dtype, launches in ((torch.bfloat16, 1), (torch.float32, 0)):
+        net = sam_decoder.SegmentAnything(state, SAM_DECODER, device="cuda", dtype=dtype)
+        e, pts = emb.to("cuda", dtype), POINTS.float().cuda()
+        sam_upscale_cuda.reset_launch_counts()
+        logits, _ = net.decode(e, pts)
+        assert sam_upscale_cuda.launch_counts["sam_upscale"] == launches
+        queries, keys = net.two_way(e, pts)
+        hyper = torch.stack([net._mlp(queries[:, 1 + i], net.hyper[i]) for i in range(1, 4)], 1)
+        want = sam_upscale_cuda.sam_upscale_plain(keys, *net.up0, *net.up1, *net.up3, hyper, g)
+        assert _masks_within_steps(logits, want) <= 2.0
